@@ -3,20 +3,28 @@
 
 Phases, each of which raises on failure (exit code != 0):
 
-1. build the four CUDA kernels from ``pychemkin_tpu_torch/kernels/csrc``;
+1. build the five CUDA kernels from ``pychemkin_tpu_torch/kernels/csrc``
+   and print each kernel's registers and spills;
 2. at grisyn shapes (KK=53, II=325, N=54) and B lanes, call each kernel
-   through the wrapper the main path calls, hold it against its plain
+   through the wrapper the sweep calls, hold it against its plain
    PyTorch twin on the card and time both, with the least time the card
    could take (bytes over 3.35 TB/s, or FP64 operations over 34 TFLOP/s,
    whichever is larger) and, for K3/K4, one PyTorch library call
-   computing the same function as a yardstick;
+   computing the same function as a yardstick: K1/K2 for CONP and CONV;
+   K3/K4; K5 (one round of 20 step attempts at 256 lanes: T_inflection
+   from a sweep's start state, T_rise from each lane's last state before
+   its crossing) against the masked loop over the plain twins, for CONP
+   and CONV;
 3. the main path: ``ignition_delay_sweep`` on grisyn, CONP/ENRG, B lanes,
    T0 evenly over 1000-1400 K, 1 atm, stoichiometric H2/air, t_end 0.05 s,
-   rtol 1e-6, atol 1e-12, with the launch counters read around it; every
-   lane must finish OK with a finite ignition time, every kernel must have
-   launched, and 8 lanes rerun through the plain twins on the card must
-   agree within 1e-6 relative;
-4. ``torch.profiler`` over the first 20 attempts of the same sweep:
+   rtol 1e-6, atol 1e-12, through K1 and K5, with the launch counters
+   read around it; then the same sweep through the host-driven loop over
+   K1-K4, which must give the same status codes, ignition times within
+   1e-6 relative and attempt and Newton totals within 1 %; every lane
+   OK with a finite ignition time, and 8 lanes rerun through the plain
+   twins on the card within 1e-6 relative;
+3b. the same for CONV/ENRG at 10 atm (a reflected-shock condition);
+4. ``torch.profiler`` over the first 20 attempts of the main-path sweep:
    device time by kernel and the device's idle share.
 
 The last lines are the kernel table as one JSON object, the card's name
@@ -39,6 +47,12 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP64_FLOP_PER_S = 34e12      # H100 SXM data sheet, FP64 without tensor cores
 TRANSCENDENTAL = 20.0        # flops charged per exp/log (repo cost model)
 PROFILE_ATTEMPTS = 20        # step attempts in the profiled window
+K5_BATCH = 256               # lanes of the K5 check against its twin
+K5_ATTEMPTS = 20             # step attempts of that round
+P_ATM = 1.01325e6
+#: (problem, P0) of the two sweeps: 1 atm at constant pressure, 10 atm
+#: at constant volume (behind a reflected shock)
+SWEEPS = (("CONP", P_ATM), ("CONV", 10 * P_ATM))
 
 
 def _nvidia_smi() -> str:
@@ -127,7 +141,7 @@ def _mech_bytes(tm):
                for n in _PTR_FIELDS)
 
 
-def _rate_flops(tm, jac):
+def _rate_flops(tm, jac, problem="CONP"):
     """FP64 operations one lane of K1 (jac=False) or K2 must do, counted
     from this mechanism's index sets. An exp or log is charged
     TRANSCENDENTAL flops, and only where the function needs one: log|A|
@@ -135,7 +149,8 @@ def _rate_flops(tm, jac):
     reverse rate and the reverse concentration product exist only on the
     reversible rows; each falloff row pays for its own form (Lindemann,
     Troe with two or three Fcent terms, SRI); the derivatives of K2 reuse
-    the exps of the rates."""
+    the exps of the rates; at constant volume C does not depend on T, so
+    there is no D C."""
     from pychemkin_tpu_torch.mechanism.record import FALLOFF_SRI, FALLOFF_TROE
     t = TRANSCENDENTAL
     KK, II, N = tm.KK, tm.II, tm.N
@@ -165,7 +180,8 @@ def _rate_flops(tm, jac):
                 + 2 * n_nus                      # dwdot/dT = nu^T dq/dT
                 + 4 * tm.jac_rxn.numel() + 2 * KK * KK   # dwdot/dC
                 + 4 * tm.tbs_row.numel() * KK    # third-body correction
-                + 4 * KK * KK + 16 * KK          # D C, h D, sums
+                + (4 if problem == "CONP" else 2) * KK * KK   # D C, h D
+                + 16 * KK                        # sums
                 + 8 * N * N)                     # chain rule to J
     return float(ops)
 
@@ -176,9 +192,64 @@ def _bound_ms(nbytes, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def _lane_work(tm, problem):
+    """(bytes, FP64 operations) of one lane's call of K1-K4: each input
+    read once and each output written once, the mechanism's tables not
+    counted (they are read once per launch, whatever B)."""
+    N, n = tm.N, tm.N - 1
+    return {
+        "rhs": ((2 * N + 1) * 8, _rate_flops(tm, False, problem)),
+        "rhs_jac": ((N + 1 + N + N * N) * 8, _rate_flops(tm, True, problem)),
+        "bordered_factor": ((N * N + 1 + n * n + 2 * n + 1) * 8,
+                            2.0 * N * N + 2.0 * n ** 3 / 3 + 2.0 * n * n
+                            + 2 * n),
+        "bordered_solve": ((n * n + 2 * n + 1 + 2 * N) * 8,
+                           2.0 * n * n + 4 * n)}
+
+
+def _k5_state_bytes(tm):
+    """Bytes one lane moves in a K5 launch in which it steps: its
+    constants read once (constraint, atol [N], t_end, thresh) and its
+    carried state read once and written once (t, y [N], f [N], h, four
+    int64 counters, the two event accumulators, stalled, status,
+    dt_min)."""
+    N = tm.N
+    state = (2 * N + 2) * 8 + 4 * 8 + 2 * 8 + 1 + 4 + 8
+    return (N + 3) * 8 + 2 * state
+
+
+#: bytes a lane that is already done reads in a K5 launch to find that
+#: out: t, t_end, stalled, n_steps, n_rejected
+K5_DONE_LANE_BYTES = 4 * 8 + 1
+
+
+def _k5_bound(tm, problem, launches, B, lane_launches, attempts, newton):
+    """Least time of K5's work, the larger of two times: the bytes it must
+    move over the memory rate, and the operations of the lane bodies it
+    runs over the FP64 rate. Bytes: the mechanism's tables once per
+    launch, ``_k5_state_bytes`` for each of the ``lane_launches`` (lane,
+    launch) pairs in which a lane stepped, and K5_DONE_LANE_BYTES for each
+    other pair; J and the LU live in shared memory and are not counted.
+    Operations: per attempt one K2 and one K3 body, per Newton iteration
+    one K1 and one K4 body, and one more K4 body for the error filter.
+    Returns (bound ms, "bytes" or "operations", the sum of the K1-K4
+    per-call bounds over those calls: the same work as separate launches,
+    with J and the LU through device memory)."""
+    work = _lane_work(tm, problem)
+    calls = {"rhs_jac": attempts, "bordered_factor": attempts,
+             "rhs": newton, "bordered_solve": newton + attempts}
+    nbytes = (launches * _mech_bytes(tm) + lane_launches * _k5_state_bytes(tm)
+              + (launches * B - lane_launches) * K5_DONE_LANE_BYTES)
+    flops = sum(c * work[k][1] for k, c in calls.items())
+    bms, by = _bound_ms(nbytes, flops)
+    per_call = sum(c * _bound_ms(*work[k])[0] for k, c in calls.items())
+    return bms, by, per_call
+
+
 def _launched(name, fn):
     """Call kernel wrapper ``fn`` once, synchronise, and check that it
-    launched its kernel (its count grew by one) rather than its twin."""
+    launched its kernel (its count grew by one) rather than its twin;
+    ``name`` is the kernel's entry of ``kernels.LAUNCHES``."""
     import torch
     from pychemkin_tpu_torch import kernels
     n = kernels.LAUNCHES[name]
@@ -188,55 +259,69 @@ def _launched(name, fn):
     return out
 
 
+def _row(name, source, replaces, **kw):
+    return dict(name=name, route="cuda",
+                source="pychemkin_tpu_torch/kernels/csrc/" + source,
+                replaces="pychemkin_tpu/" + replaces, **kw)
+
+
 def check_kernels(tm, B, reps):
-    """Phase 2: every kernel against its plain twin at B lanes."""
+    """Phase 2, K1-K4: every kernel against its plain twin at B lanes."""
     import torch
     from pychemkin_tpu_torch import kernels
-    from pychemkin_tpu_torch.ops import jacobian, linalg, reactors
+    from pychemkin_tpu_torch.ops import jacobian, linalg, reactors, thermo
     KK, N = tm.KK, tm.N
     rows = []
     mech_b = _mech_bytes(tm)
 
-    # K1 / K2 on random states
+    # K1 / K2 on random states, for both constraints; the CONV lanes sit at
+    # the density of their own (T, P, Y)
     y, P = _states(tm, B, 0, realistic=False)
-    f_k = _launched("rhs", lambda: kernels.rhs(tm, y, P))
-    f_t = reactors.conp_enrg_rhs(tm, y, P)
-    torch.cuda.synchronize()
     T = y[:, KK]
-    e1 = _rate_rel(f_k, f_t, T, KK)
-    assert torch.isfinite(f_k).all(), "K1 produced non-finite values"
-    assert e1 <= 1e-12, f"K1 vs twin: scale-relative {e1:.3e} > 1e-12"
-    ms = _time_ms(lambda: kernels.rhs(tm, y, P), reps)
-    pms = _time_ms(lambda: reactors.conp_enrg_rhs(tm, y, P),
-                   max(reps // 10, 2))
-    nbytes = B * (2 * N + 1) * 8 + mech_b
-    bms, by = _bound_ms(nbytes, B * _rate_flops(tm, False))
-    rows.append(dict(name="rhs", route="cuda",
-                     source="pychemkin_tpu_torch/kernels/csrc/rhs.cu",
-                     replaces="pychemkin_tpu/ops/reactors.py:100",
-                     max_abs_err=float((f_k - f_t).abs().max()),
-                     scale_rel_err=e1, ms=ms, plain_ms=pms, bound_ms=bms,
-                     bound_by=by, library_ms=None))
+    for problem in ("CONP", "CONV"):
+        c = P if problem == "CONP" else thermo.density(tm, T, P, y[:, :KK])
+        rhs_t, jac_t = reactors.RHS_TWINS[problem]
+        tag = "" if problem == "CONP" else " (CONV)"
+        name = kernels.launch_name("rhs", problem)
+        f_k = _launched(name, lambda: kernels.rhs(tm, y, c, problem=problem))
+        f_t = rhs_t(tm, y, c)
+        torch.cuda.synchronize()
+        e1 = _rate_rel(f_k, f_t, T, KK)
+        assert torch.isfinite(f_k).all(), f"K1{tag} produced non-finite values"
+        assert e1 <= 1e-12, f"K1{tag} vs twin: scale-relative {e1:.3e} > 1e-12"
+        ms = _time_ms(lambda: kernels.rhs(tm, y, c, problem=problem), reps)
+        pms = _time_ms(lambda: rhs_t(tm, y, c), max(reps // 10, 2))
+        nbytes = B * (2 * N + 1) * 8 + mech_b
+        bms, by = _bound_ms(nbytes, B * _rate_flops(tm, False, problem))
+        rows.append(_row(name, "rhs.cu",
+                         "ops/reactors.py:100" if problem == "CONP"
+                         else "ops/reactors.py:132",
+                         max_abs_err=float((f_k - f_t).abs().max()),
+                         scale_rel_err=e1, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=None))
 
-    f_k, J_k = _launched("rhs_jac", lambda: kernels.rhs_jac(tm, y, P))
-    f_t, J_t = jacobian.conp_enrg_rhs_jac(tm, y, P)
-    torch.cuda.synchronize()
-    e2f = _rate_rel(f_k, f_t, T, KK)
-    e2 = _rate_rel(J_k, J_t, T, KK)
-    assert torch.isfinite(J_k).all(), "K2 produced non-finite values"
-    assert e2f <= 1e-12, f"K2 f vs twin: {e2f:.3e} > 1e-12"
-    assert e2 <= 1e-11, f"K2 J vs twin: scale-relative {e2:.3e} > 1e-11"
-    ms = _time_ms(lambda: kernels.rhs_jac(tm, y, P), reps)
-    pms = _time_ms(lambda: jacobian.conp_enrg_rhs_jac(tm, y, P),
-                   max(reps // 10, 2))
-    nbytes = B * (N + 1 + N + N * N) * 8 + mech_b
-    bms, by = _bound_ms(nbytes, B * _rate_flops(tm, True))
-    rows.append(dict(name="rhs_jac", route="cuda",
-                     source="pychemkin_tpu_torch/kernels/csrc/rhs_jac.cu",
-                     replaces="pychemkin_tpu/ops/jacobian.py:710",
-                     max_abs_err=float((J_k - J_t).abs().max()),
-                     scale_rel_err=e2, ms=ms, plain_ms=pms, bound_ms=bms,
-                     bound_by=by, library_ms=None))
+        name = kernels.launch_name("rhs_jac", problem)
+        f_k, J_k = _launched(name, lambda: kernels.rhs_jac(tm, y, c,
+                                                           problem=problem))
+        f_t, J_t = jac_t(tm, y, c)
+        torch.cuda.synchronize()
+        e2f = _rate_rel(f_k, f_t, T, KK)
+        e2 = _rate_rel(J_k, J_t, T, KK)
+        assert torch.isfinite(J_k).all(), f"K2{tag} produced non-finite values"
+        assert e2f <= 1e-12, f"K2{tag} f vs twin: {e2f:.3e} > 1e-12"
+        assert e2 <= 1e-11, \
+            f"K2{tag} J vs twin: scale-relative {e2:.3e} > 1e-11"
+        ms = _time_ms(lambda: kernels.rhs_jac(tm, y, c, problem=problem),
+                      reps)
+        pms = _time_ms(lambda: jac_t(tm, y, c), max(reps // 10, 2))
+        nbytes = B * (N + 1 + N + N * N) * 8 + mech_b
+        bms, by = _bound_ms(nbytes, B * _rate_flops(tm, True, problem))
+        rows.append(_row(name, "rhs_jac.cu",
+                         "ops/jacobian.py:710" if problem == "CONP"
+                         else "ops/jacobian.py:558 (CONV branch, via :710)",
+                         max_abs_err=float((J_k - J_t).abs().max()),
+                         scale_rel_err=e2, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=None))
 
     # K3 / K4 on realistic states, h log-uniform over 1e-9..1e-4 s
     y, P = _states(tm, B, 1, realistic=True)
@@ -274,10 +359,8 @@ def check_kernels(tm, B, reps):
     nbytes = B * (N * N + 1 + n * n + 2 * n + 1) * 8
     flops = B * (2.0 * N * N + 2.0 * n ** 3 / 3 + 2.0 * n * n + 2 * n)
     bms, by = _bound_ms(nbytes, flops)
-    rows.append(dict(name="bordered_factor", route="cuda",
-                     source="pychemkin_tpu_torch/kernels/csrc/"
-                            "bordered_factor.cu",
-                     replaces="pychemkin_tpu/ops/linalg.py:249",
+    rows.append(_row("bordered_factor", "bordered_factor.cu",
+                     "ops/linalg.py:249",
                      max_abs_err=float(max((a - b).abs().max()
                                            for a, b in zip(fac_k, fac_t))),
                      scale_rel_err=e3, ms=ms, plain_ms=pms, bound_ms=bms,
@@ -291,24 +374,204 @@ def check_kernels(tm, B, reps):
     nbytes = B * (n * n + 2 * n + 1 + 2 * N) * 8
     flops = B * (2.0 * n * n + 4 * n)
     bms, by = _bound_ms(nbytes, flops)
-    rows.append(dict(name="bordered_solve", route="cuda",
-                     source="pychemkin_tpu_torch/kernels/csrc/"
-                            "bordered_solve.cu",
-                     replaces="pychemkin_tpu/ops/linalg.py:285",
+    rows.append(_row("bordered_solve", "bordered_solve.cu",
+                     "ops/linalg.py:285",
                      max_abs_err=float((x_k - x_t).abs().max()),
                      scale_rel_err=e4, residual=back, ms=ms, plain_ms=pms,
                      bound_ms=bms, bound_by=by, library_ms=lms,
                      library_call="torch.linalg.lu_solve(LU, piv, r)"))
     for row in rows:
-        print(f"kernel {row['name']}: {row['ms']:.4f} ms (twin "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"by {row['bound_by']}, library {row['library_ms']}), "
-              f"scale-rel err {row['scale_rel_err']:.3e}", flush=True)
+        _print_row(row)
     return rows
 
 
-def main_path(tm, B, t_end):
-    """Phase 3: the grisyn CONP/ENRG ignition-delay sweep."""
+def _print_row(row):
+    print(f"kernel {row['name']}: {row['ms']:.4f} ms (twin "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"by {row['bound_by']}, library {row['library_ms']}), "
+          f"scale-rel err {row['scale_rel_err']:.3e}", flush=True)
+
+
+def _sweep_start(tm, problem, P0, B, t_end, mode):
+    """(lanes, events, start state) of a grisyn sweep over B lanes: T0
+    evenly over 1000-1400 K at P0, stoichiometric H2/air, ignition mode
+    ``mode``."""
+    import numpy as np
+    import torch
+    from pychemkin_tpu_torch.ops import odeint, reactors
+    f64 = dict(dtype=torch.float64, device=tm.device)
+    T0 = torch.tensor(np.linspace(1000.0, 1400.0, B), **f64)
+    Y0 = torch.tensor(np.tile(_stoich_Y(tm), (B, 1)), **f64)
+    lanes, y0 = reactors.sweep_lane_args(
+        tm, T0, torch.full((B,), P0, **f64), Y0,
+        torch.full((B,), t_end, **f64), atol=1e-12, ignition_mode=mode,
+        problem=problem)
+    events = reactors.ignition_events(mode)
+    with torch.inference_mode():
+        s0 = odeint.sweep_start(reactors.kernel_ops(problem), tm, lanes, y0,
+                                1e-6, events)
+    return lanes, events, s0
+
+
+def _clone(s):
+    return type(s)(*[x.clone() for x in s])
+
+
+def _k5_vs_twin(tm, problem, lanes, events, s0, mode):
+    """One round of K5_ATTEMPTS attempts from ``s0`` through
+    ``kernels.sdirk_round`` and through the masked loop over the plain
+    twins (``odeint.sweep_round``). Checks: every carried field finite
+    where the twin's is; equal status codes on every lane; the twin's
+    attempt and Newton counts on at least 99 % of the lanes, and on them
+    t, y, h and the event accumulators within 1e-8 relative (an event
+    time not yet found must be unfound in both); attempt and Newton
+    totals within 1 %. Returns (kernel state, twin state, twin ms,
+    statistics)."""
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import odeint, reactors
+    B, R = s0.t.shape[0], K5_ATTEMPTS
+    tag = f"K5 {problem} {reactors.IGNITION_MODES[mode]}"
+    name = kernels.launch_name("sdirk_round", problem)
+    with torch.inference_mode():
+        sk = _launched(name, lambda: kernels.sdirk_round(
+            tm, lanes, _clone(s0), rtol=1e-6, budget=20_000,
+            max_attempts=R, event_mode=mode, problem=problem))
+        t1 = time.perf_counter()
+        st = odeint.sweep_round(reactors.plain_ops(problem), tm, lanes,
+                                events, 1e-6, 20_000, _clone(s0),
+                                max_attempts=R)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t1) * 1e3
+    for f, a, b in zip(odeint.StepState._fields, sk, st):
+        if a.is_floating_point():
+            assert bool((a.isfinite() | ~b.isfinite()).all()), \
+                f"{tag}: {f} not finite where the twin's is"
+    assert torch.equal(sk.status, st.status), f"{tag}: status codes"
+    # the counts of this round: the state carries the totals since t = 0
+    att0 = s0.n_steps + s0.n_rejected
+    att_k = sk.n_steps + sk.n_rejected - att0
+    att_t = st.n_steps + st.n_rejected - att0
+    new_k, new_t = sk.n_newton - s0.n_newton, st.n_newton - s0.n_newton
+    same = (att_k == att_t) & (new_k == new_t)
+    n_same = int(same.sum())
+    assert n_same >= 0.99 * B, \
+        f"{tag}: only {n_same}/{B} lanes with the twin's counts"
+
+    def rel(a, b):
+        a, b = a.reshape(B, -1)[same], b.reshape(B, -1)[same]
+        found = b.isfinite()
+        assert torch.equal(a.isfinite(), found), f"{tag}: finite pattern"
+        d = (a - b).abs() / b.abs().clamp_min(1e-300)
+        return float(d[found].max()) if bool(found.any()) else 0.0
+    y_scale = st.y.abs().amax(1)
+    err = dict(t=rel(sk.t, st.t), h=rel(sk.h, st.h),
+               y=float(((sk.y - st.y).abs().amax(1) / y_scale)[same].max()),
+               acc_t=rel(sk.acc_t, st.acc_t), acc_v=rel(sk.acc_v, st.acc_v))
+    tot = {k: (int(a.sum()), int(b.sum())) for k, a, b in (
+        ("attempts", att_k, att_t), ("newton", new_k, new_t))}
+    found = int((st.acc_t[:, 0].isfinite() & ~s0.acc_t[:, 0].isfinite())
+                .sum())
+    print(f"{tag} vs twin, B={B}, {R} attempts: {n_same}/{B} lanes with "
+          f"equal counts; on them relative errors "
+          f"{ {k: f'{v:.2e}' for k, v in err.items()} }; totals (kernel, "
+          f"twin) {tot}; the twin found the event time on {found} lanes "
+          f"in this round", flush=True)
+    assert max(err.values()) <= 1e-8, f"{tag} vs twin beyond 1e-8: {err}"
+    for k, (a, b) in tot.items():
+        assert abs(a - b) <= 0.01 * b, f"{tag}: {k} totals {a} vs {b}"
+    stats = dict(lanes_equal_counts=n_same, totals=tot, rel_err=err,
+                 events_found=found)
+    return sk, st, pms, stats
+
+
+def _before_crossing(tm, problem, lanes, s0, step):
+    """Per lane, the last state before its T_rise crossing: K5 advances
+    ``s0`` in rounds of ``step`` attempts, and each lane keeps the state it
+    had at the start of the round in which its crossing time was found.
+    So the next round of K5_ATTEMPTS >= ``step`` attempts from it crosses
+    on every lane (where the twin takes the same steps)."""
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import odeint
+    pre, cur = _clone(s0), _clone(s0)
+    with torch.inference_mode():
+        while bool(odeint.sweep_going(cur, lanes, 20_000).any()):
+            before = _clone(cur)
+            kernels.sdirk_round(tm, lanes, cur, rtol=1e-6, budget=20_000,
+                                max_attempts=step, event_mode=1,
+                                problem=problem)
+            now = cur.acc_t[:, 0].isfinite()
+            fresh = now & ~before.acc_t[:, 0].isfinite()
+            pre = type(s0)(*[torch.where(fresh.view(-1, *[1] * (p.dim() - 1)),
+                                         b, p) for p, b in zip(pre, before)])
+            if bool(now.all()):
+                break
+    return pre
+
+
+def check_k5(tm, problem, P0, t_end, reps):
+    """Phase 2, K5: one round of K5_ATTEMPTS step attempts at K5_BATCH
+    lanes through ``kernels.sdirk_round`` and through the masked loop over
+    the plain twins: T_inflection (event_mode 0) from a sweep's start
+    state, and T_rise (event_mode 1, threshold T0 + 400 K) from each lane's
+    last state before its crossing, so that the crossing branch runs on
+    every lane; then K5's time per launch of the first."""
+    import numpy as np
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import reactors
+    B, R = K5_BATCH, K5_ATTEMPTS
+    lanes, events, s0 = _sweep_start(tm, problem, P0, B, t_end,
+                                     reactors.IGN_T_INFLECTION)
+    sk, st, pms, stats = _k5_vs_twin(tm, problem, lanes, events, s0, 0)
+
+    lanes_r, events_r, s0_r = _sweep_start(tm, problem, P0, B, t_end,
+                                           reactors.IGN_T_RISE)
+    pre = _before_crossing(tm, problem, lanes_r, s0_r, R // 2)
+    sk_r, st_r, _, stats_r = _k5_vs_twin(tm, problem, lanes_r, events_r, pre,
+                                         1)
+    assert stats_r["events_found"] == B, \
+        f"K5 {problem} T_rise: crossing found on {stats_r['events_found']}" \
+        f"/{B} lanes of the twin"
+
+    # time per launch, each launch from the same start state
+    kw = dict(rtol=1e-6, budget=20_000, max_attempts=R, event_mode=0,
+              problem=problem)
+    starts = [_clone(s0) for _ in range(reps + 1)]
+    with torch.inference_mode():
+        kernels.sdirk_round(tm, lanes, starts[-1], **kw)
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for (e0, e1), s in zip(ev, starts):
+            e0.record()
+            kernels.sdirk_round(tm, lanes, s, **kw)
+            e1.record()
+        torch.cuda.synchronize()
+    ms = float(np.mean([e0.elapsed_time(e1) for e0, e1 in ev]))
+    att, newton = stats["totals"]["attempts"][0], stats["totals"]["newton"][0]
+    bms, by, per_call = _k5_bound(tm, problem, 1, B, B, att, newton)
+    row = _row(kernels.launch_name("sdirk_round", problem), "sdirk_round.cu",
+               "ops/odeint.py:451 (_segment_fns; :322, :355, :377, :787)",
+               max_abs_err=float((sk.y - st.y).abs().max()),
+               scale_rel_err=max(stats["rel_err"].values()), ms=ms,
+               plain_ms=pms, bound_ms=bms, bound_by=by,
+               per_call_bound_sum_ms=per_call, library_ms=None, batch=B,
+               attempts=R, **stats,
+               t_rise=dict(stats_r, max_abs_err_acc_t=float(
+                   (sk_r.acc_t - st_r.acc_t).abs().max())))
+    _print_row(row)
+    print(f"  K5 {problem}: per-call bound sum {per_call:.4f} ms", flush=True)
+    return row
+
+
+def sweep_phase(tm, problem, P0, B, t_end):
+    """Phase 3 (CONP, the main path) or 3b (CONV): the grisyn sweep
+    through K1 and K5 (``ignition_delay_sweep``), then through the
+    host-driven loop over K1-K4, each with the launch counters set to 0
+    just before it and read just after; then 8 lanes through the plain
+    twins on the card."""
     import numpy as np
     import torch
     from pychemkin_tpu_torch import kernels
@@ -316,60 +579,106 @@ def main_path(tm, B, t_end):
     from pychemkin_tpu_torch.resilience.status import SolveStatus
     T0 = np.linspace(1000.0, 1400.0, B)
     Y0 = _stoich_Y(tm)
-    kw = dict(rtol=1e-6, atol=1e-12, device="cuda", profile=True)
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    times, ok, status, prof = reactors.ignition_delay_sweep(
-        tm, "CONP", "ENRG", T0, 1.01325e6, Y0, t_end, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    times_np = times.cpu().numpy()
-    st = status.cpu().numpy()
-    assert times.shape == (B,) and status.shape == (B,)
+    args = (tm, problem, "ENRG", T0, P0, Y0, t_end)
+    kw = dict(rtol=1e-6, atol=1e-12, ignition_mode=reactors.IGN_T_INFLECTION,
+              max_steps_per_segment=20_000, device="cuda")
+    name = {k: kernels.launch_name(k, problem)
+            for k in ("rhs", "rhs_jac", "sdirk_round")}
+    runs = {}
+    for path, ops in (("k5", None),
+                      ("host_loop", reactors.kernel_ops(problem))):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        times, ok, status, prof = reactors._sweep(ops, *args, **kw,
+                                                  profile=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        att = prof["n_steps"] + prof["n_rejected"]
+        runs[path] = dict(
+            times=times.cpu().numpy(), ok=ok.cpu().numpy(),
+            status=status.cpu().numpy(), wall_s=wall,
+            ignitions_per_s=B / wall, attempts=int(att.sum()),
+            max_attempts=int(att.max()), newton=int(prof["n_newton"].sum()),
+            lane_rounds=int(((att + reactors.ROUND_ATTEMPTS - 1)
+                             // reactors.ROUND_ATTEMPTS).sum()),
+            launches=launches)
+        print(f"sweep grisyn {problem}/ENRG P0={P0:.6g} B={B} t_end={t_end} "
+              f"via {path}: wall {wall:.3f} s, {B / wall:.2f} ignitions/s, "
+              f"attempts {runs[path]['attempts']} (max per lane "
+              f"{runs[path]['max_attempts']}), Newton iterations "
+              f"{runs[path]['newton']}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    k5, host = runs["k5"], runs["host_loop"]
+    lk, lh = k5["launches"], host["launches"]
+    # the sweep's attempts ran only inside K5, one launch per round
+    assert lk[name["rhs"]] > 0 and lk[name["sdirk_round"]] > 0, lk
+    assert lk[name["rhs_jac"]] == lk["bordered_factor"] \
+        == lk["bordered_solve"] == 0, lk
+    assert lh[name["sdirk_round"]] == 0 and all(
+        lh[k] > 0 for k in (name["rhs"], name["rhs_jac"], "bordered_factor",
+                            "bordered_solve")), lh
+    st = k5["status"]
     assert (st == int(SolveStatus.OK)).all(), \
         f"status codes {np.unique(st, return_counts=True)}"
-    assert bool(ok.all()), "some lanes did not succeed"
-    assert np.isfinite(times_np).all(), "non-finite ignition times"
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
-    attempts = int((prof["n_steps"] + prof["n_rejected"]).sum())
-    max_attempts = int((prof["n_steps"] + prof["n_rejected"]).max())
-    newton = int(prof["n_newton"].sum())
-    print(f"main path: grisyn CONP/ENRG B={B} t_end={t_end}: wall "
-          f"{wall:.3f} s, {B / wall:.2f} ignitions/s, attempts {attempts} "
-          f"(max per lane {max_attempts}), Newton iterations {newton}, "
-          f"launches {launches}", flush=True)
-    print(f"ignition times [s]: min {times_np.min():.6e} max "
+    assert bool(k5["ok"].all()), "some lanes did not succeed"
+    assert np.isfinite(k5["times"]).all(), "non-finite ignition times"
+    assert (st == host["status"]).all(), "K5 and host-loop status codes"
+    rel_host = float(np.max(np.abs(k5["times"] - host["times"])
+                            / np.abs(host["times"])))
+    for k in ("attempts", "newton"):
+        assert abs(k5[k] - host[k]) <= 0.01 * host[k], \
+            f"{k}: K5 {k5[k]} vs host loop {host[k]}"
+    assert rel_host <= 1e-6, f"K5 vs host-loop ignition times {rel_host}"
+    # a lane steps in ceil(attempts / ROUND_ATTEMPTS) of the K5 launches
+    bound, by, per_call = _k5_bound(tm, problem, lk[name["sdirk_round"]], B,
+                                    k5["lane_rounds"], k5["attempts"],
+                                    k5["newton"])
+    print(f"  K5 vs host loop: ignition times within {rel_host:.3e} "
+          f"relative, attempts {k5['attempts']} vs {host['attempts']}, "
+          f"Newton {k5['newton']} vs {host['newton']}; K5 rounds "
+          f"{lk[name['sdirk_round']]}; the K5 work's bound {bound:.2f} ms "
+          f"by {by} (as separate K1-K4 launches: {per_call:.2f} ms)",
+          flush=True)
+    times_np = k5["times"]
+    print(f"  ignition times [s]: min {times_np.min():.6e} max "
           f"{times_np.max():.6e}", flush=True)
 
     pick = np.unique(np.linspace(0, B - 1, min(8, B)).round().astype(int))
     t1 = time.perf_counter()
-    ref, ok_r, st_r = reactors._sweep(
-        reactors.PLAIN_OPS, tm, "CONP", "ENRG", T0[pick], 1.01325e6, Y0,
-        t_end, rtol=1e-6, atol=1e-12,
-        ignition_mode=reactors.IGN_T_INFLECTION,
-        max_steps_per_segment=20_000, device="cuda", profile=False)
+    ref, _, st_r = reactors._sweep(
+        reactors.plain_ops(problem), tm, problem, "ENRG", T0[pick], P0, Y0,
+        t_end, **kw, profile=False)
     torch.cuda.synchronize()
     ref = ref.cpu().numpy()
     rel = np.abs(times_np[pick] - ref) / np.abs(ref)
-    print(f"plain-twin rerun of lanes {pick.tolist()}: max relative "
+    print(f"  plain-twin rerun of lanes {pick.tolist()}: max relative "
           f"difference {rel.max():.3e} ({time.perf_counter() - t1:.1f} s)",
           flush=True)
     assert (st_r.cpu().numpy() == int(SolveStatus.OK)).all()
     assert rel.max() <= 1e-6, f"kernel vs twin ignition times {rel.max()}"
-    return launches, dict(wall_s=wall, ignitions_per_s=B / wall,
-                          attempts=attempts, newton=newton,
-                          max_rel_vs_plain=float(rel.max()))
+    summary = dict(
+        problem=problem, P0=P0, B=B, t_end=t_end,
+        wall_s=k5["wall_s"], ignitions_per_s=k5["ignitions_per_s"],
+        attempts=k5["attempts"], max_attempts=k5["max_attempts"],
+        newton=k5["newton"], k5_rounds=lk[name["sdirk_round"]],
+        k5_bound_ms=bound, k5_bound_by=by,
+        k5_per_call_bound_sum_ms=per_call,
+        host_loop_wall_s=host["wall_s"],
+        host_loop_ignitions_per_s=host["ignitions_per_s"],
+        host_loop_attempts=host["attempts"], host_loop_newton=host["newton"],
+        max_rel_vs_host_loop=rel_host, max_rel_vs_plain=float(rel.max()))
+    return {"k5": lk, "host_loop": lh}, summary
 
 
 def profile_window(tm, B):
     """Where the time goes: ``torch.profiler`` over the first
     PROFILE_ATTEMPTS step attempts of the main-path sweep (lanes stop at
-    that budget). Device-busy time is the union of the intervals of the
-    device's own events (kernels, copies, sets), so a host operation's
-    share of its kernels is not counted again. Returns wall and
+    that budget), which runs them in one launch of K5. Device-busy time
+    is the union of the intervals of the device's own events (kernels,
+    copies, sets), so a host operation's share of its kernels is not
+    counted again. Returns wall and
     device-busy milliseconds, the device's idle share and the largest
     device entries, or None when the trace holds no device event."""
     import numpy as np
@@ -417,6 +726,41 @@ def profile_window(tm, B):
                      for k, (ms, n) in top])
 
 
+def _build_report():
+    """Registers, spills and stack of every kernel, from ptxas -v."""
+    import re
+    from pychemkin_tpu_torch.kernels import build
+    out, name = {}, None
+    for line in build.BUILD_INFO.get("log", "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([A-Za-z0-9_]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        elif name and "spill" in line:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                out[name].update(stack=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+        elif name and "registers" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
+
+
+#: the path each kernel's launches are read from: K1 and K5 run on the
+#: sweeps through K5, K2-K4 on the host-driven loops
+_HOME = {"rhs": ("CONP", "k5"), "rhs_conv": ("CONV", "k5"),
+         "sdirk_round": ("CONP", "k5"), "sdirk_round_conv": ("CONV", "k5"),
+         "rhs_jac": ("CONP", "host_loop"),
+         "rhs_jac_conv": ("CONV", "host_loop"),
+         "bordered_factor": ("CONP", "host_loop"),
+         "bordered_solve": ("CONP", "host_loop")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4096)
@@ -436,23 +780,41 @@ def main(argv=None):
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({build.BUILD_INFO.get('path')})", flush=True)
+    ptxas = _build_report()
+    for fn, info in ptxas.items():
+        print(f"  ptxas {fn}: {info}", flush=True)
     for line in build.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "error" in line or "warning" in line:
             print("  " + line.strip(), flush=True)
     build.library()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     tm = TorchMechanism(load_embedded("grisyn"), "cuda")
     rows = check_kernels(tm, args.batch, args.reps)
-    launches, summary = main_path(tm, args.batch, args.t_end)
+    for problem, P0 in SWEEPS:
+        row = check_k5(tm, problem, P0, args.t_end, max(args.reps // 4, 2))
+        row["ptxas"] = next((v for k, v in ptxas.items()
+                             if "sdirk_round_kernel" in k
+                             and f"ILi{0 if problem == 'CONP' else 1}E" in k),
+                            None)
+        rows.append(row)
+    launches, summaries = {}, []
+    for problem, P0 in SWEEPS:
+        launches[problem], summary = sweep_phase(tm, problem, P0, args.batch,
+                                                 args.t_end)
+        summaries.append(summary)
     prof = profile_window(tm, args.batch)
     print(json.dumps({"profile": prof if prof is not None else
                       "not measured: no device time in the trace"}),
           flush=True)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        problem, path = _HOME[row["name"]]
+        row["launches"] = launches[problem][path][row["name"]]
+        row["launches_by_path"] = {f"{p}_{q}": launches[p][q][row["name"]]
+                                   for p in launches for q in launches[p]}
+        assert row["launches"] > 0, f"{row['name']} not launched on its path"
     smi = _nvidia_smi()
-    print(json.dumps({"main_path": summary, "card": smi}), flush=True)
+    print(json.dumps({"sweeps": summaries, "card": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,18 @@
-"""Wrappers of the four hand-written CUDA kernels of the CONP/ENRG sweep.
+"""Wrappers of the hand-written CUDA kernels of the ignition-delay sweep.
 
 - :func:`rhs` (K1, ``csrc/rhs.cu``): the RHS f = dy/dt, [B, N] -> [B, N];
 - :func:`rhs_jac` (K2, ``csrc/rhs_jac.cu``): the fused (f, J);
 - :func:`bordered_factor` (K3, ``csrc/bordered_factor.cu``): forms
   M = I - hg J and factors it (pivot-free LU of the species block, Schur
   elimination of the T border);
-- :func:`bordered_solve` (K4, ``csrc/bordered_solve.cu``): x = M^-1 r.
+- :func:`bordered_solve` (K4, ``csrc/bordered_solve.cu``): x = M^-1 r;
+- :func:`sdirk_round` (K5, ``csrc/sdirk_round.cu``): up to R SDIRK3 step
+  attempts per lane in one launch, built from the lane bodies of K1-K4.
+
+K1, K2 and K5 take the reactor's ``problem``: "CONP" (the lane's
+constraint value is its pressure) or "CONV" (its density); each problem
+is its own instantiation of one lane body, counted under its own name in
+:data:`LAUNCHES` ("rhs", "rhs_conv", ...).
 
 A tensor on the CPU goes to the kernel's plain PyTorch twin in
 :mod:`pychemkin_tpu_torch.ops`; a CUDA tensor launches the kernel on the
@@ -26,8 +33,12 @@ from ..ops.linalg import BorderedFactor
 from . import build
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES = {"rhs": 0, "rhs_jac": 0, "bordered_factor": 0,
-            "bordered_solve": 0}
+LAUNCHES = {"rhs": 0, "rhs_conv": 0, "rhs_jac": 0, "rhs_jac_conv": 0,
+            "bordered_factor": 0, "bordered_solve": 0, "sdirk_round": 0,
+            "sdirk_round_conv": 0}
+
+#: kernel code of each problem (the template parameter PROB of chem.cuh)
+PROBLEMS = {"CONP": 0, "CONV": 1}
 
 
 def reset_launches() -> None:
@@ -72,6 +83,18 @@ def mech_view(tm) -> MechView:
     return view
 
 
+class SdirkArgs(ctypes.Structure):
+    """Mirror of ``SdirkArgs`` (csrc/sdirk_round.cu): the lanes and the
+    carried step state of :mod:`..ops.odeint`, then the scalars."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "constraint", "atol", "t_end", "thresh", "t", "y", "f", "h",
+        "n_steps", "n_rejected", "n_newton", "consec_rej", "acc_t", "acc_v",
+        "stalled", "status", "dt_min")]
+                + [("rtol", ctypes.c_double), ("budget", ctypes.c_longlong),
+                   ("max_attempts", ctypes.c_int),
+                   ("event_mode", ctypes.c_int)])
+
+
 def _check(name, t, shape, dtype=torch.float64):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -113,38 +136,53 @@ def _check_mech(tm, y):
         raise ValueError(f"mechanism on {tm.device}, state on {y.device}")
 
 
-def rhs(tm, y, P):
-    """K1: CONP/ENRG RHS, ``y`` [B, N], ``P`` [B] -> f [B, N]."""
+def _problem(problem) -> int:
+    if problem not in PROBLEMS:
+        raise ValueError(f"unknown problem {problem!r}: expected one of "
+                         f"{sorted(PROBLEMS)}")
+    return PROBLEMS[problem]
+
+
+def launch_name(kernel, problem="CONP"):
+    """The :data:`LAUNCHES` entry of ``kernel`` for ``problem``."""
+    return kernel if problem == "CONP" else f"{kernel}_{problem.lower()}"
+
+
+def rhs(tm, y, c, problem="CONP"):
+    """K1: the ENRG RHS of ``problem``, ``y`` [B, N] and the constraint
+    value ``c`` [B] (pressure for CONP, density for CONV) -> f [B, N]."""
+    code = _problem(problem)
     B = y.shape[0]
     _check("y", y, (B, tm.N))
-    _check("P", P, (B,))
-    if not _route(y, P):
-        from ..ops.reactors import conp_enrg_rhs
-        return conp_enrg_rhs(tm, y, P)
+    _check("c", c, (B,))
+    if not _route(y, c):
+        from ..ops.reactors import RHS_TWINS
+        return RHS_TWINS[problem][0](tm, y, c)
     _check_mech(tm, y)
     f = torch.empty_like(y)
     _raise_on(build.library().chem_rhs(
-        ctypes.byref(mech_view(tm)), y.data_ptr(), P.data_ptr(),
-        f.data_ptr(), B, _stream(y.device)), "rhs")
-    LAUNCHES["rhs"] += 1
+        ctypes.byref(mech_view(tm)), y.data_ptr(), c.data_ptr(),
+        f.data_ptr(), B, code, _stream(y.device)), "rhs")
+    LAUNCHES[launch_name("rhs", problem)] += 1
     return f
 
 
-def rhs_jac(tm, y, P):
-    """K2: fused CONP/ENRG (f [B, N], J [B, N, N])."""
+def rhs_jac(tm, y, c, problem="CONP"):
+    """K2: the fused ENRG (f [B, N], J [B, N, N]) of ``problem``."""
+    code = _problem(problem)
     B, N = y.shape[0], tm.N
     _check("y", y, (B, N))
-    _check("P", P, (B,))
-    if not _route(y, P):
-        from ..ops.jacobian import conp_enrg_rhs_jac
-        return conp_enrg_rhs_jac(tm, y, P)
+    _check("c", c, (B,))
+    if not _route(y, c):
+        from ..ops.reactors import RHS_TWINS
+        return RHS_TWINS[problem][1](tm, y, c)
     _check_mech(tm, y)
     f = torch.empty_like(y)
     J = torch.empty(B, N, N, dtype=y.dtype, device=y.device)
     _raise_on(build.library().chem_rhs_jac(
-        ctypes.byref(mech_view(tm)), y.data_ptr(), P.data_ptr(),
-        f.data_ptr(), J.data_ptr(), B, _stream(y.device)), "rhs_jac")
-    LAUNCHES["rhs_jac"] += 1
+        ctypes.byref(mech_view(tm)), y.data_ptr(), c.data_ptr(),
+        f.data_ptr(), J.data_ptr(), B, code, _stream(y.device)), "rhs_jac")
+    LAUNCHES[launch_name("rhs_jac", problem)] += 1
     return f, J
 
 
@@ -191,5 +229,60 @@ def bordered_solve(fac: BorderedFactor, r):
     return x
 
 
-__all__ = ["LAUNCHES", "bordered_factor", "bordered_solve", "reset_launches",
-           "rhs", "rhs_jac"]
+def sdirk_round(tm, lanes, state, *, rtol, budget, max_attempts,
+                event_mode, problem):
+    """K5: up to ``max_attempts`` SDIRK3 step attempts on every lane of
+    ``state`` (an :class:`~..ops.odeint.StepState`) that is short of its
+    t_end, not stalled and under ``budget`` attempts; ``lanes`` is the
+    sweep's :class:`~..ops.odeint.Lanes`, ``event_mode`` the index of the
+    ignition mode in ``ops.reactors.IGNITION_MODES`` (0 T_inflection,
+    1 T_rise). Returns the advanced state: on the card the state's
+    tensors are updated in place (one launch, one block per lane); on the
+    CPU its twin, :func:`..ops.odeint.sweep_round` over the plain ops,
+    returns a new state."""
+    code = _problem(problem)
+    if event_mode not in (0, 1):
+        raise ValueError(f"event_mode must be 0 or 1, got {event_mode!r}")
+    if int(max_attempts) < 1:
+        raise ValueError(f"max_attempts must be >= 1, got {max_attempts!r}")
+    B, N = state.y.shape
+    if N != tm.N:
+        raise ValueError(f"state.y: expected {tm.N} columns, got {N}")
+    f64, i64 = torch.float64, torch.int64
+    for name, shape, dtype in (
+            ("t", (B,), f64), ("y", (B, N), f64), ("f", (B, N), f64),
+            ("h", (B,), f64), ("n_steps", (B,), i64),
+            ("n_rejected", (B,), i64), ("n_newton", (B,), i64),
+            ("consec_rej", (B,), i64), ("acc_t", (B, 1), f64),
+            ("acc_v", (B, 1), f64), ("stalled", (B,), torch.bool),
+            ("status", (B,), torch.int32), ("dt_min", (B,), f64)):
+        _check(name, getattr(state, name), shape, dtype)
+    for name, shape in (("constraint", (B,)), ("atol", (B, N)),
+                        ("t_end", (B,)), ("thresh", (B,))):
+        _check(name, getattr(lanes, name), shape)
+    if not _route(*state, *lanes):
+        from ..ops.odeint import sweep_round
+        from ..ops.reactors import IGNITION_MODES, ignition_events, plain_ops
+        return sweep_round(plain_ops(problem), tm, lanes,
+                           ignition_events(IGNITION_MODES[event_mode]),
+                           rtol, budget, state,
+                           max_attempts=int(max_attempts))
+    _check_mech(tm, state.y)
+    args = SdirkArgs(**{n: getattr(lanes, n).data_ptr() for n in
+                        ("constraint", "atol", "t_end", "thresh")},
+                     **{n: getattr(state, n).data_ptr() for n in (
+                         "t", "y", "f", "h", "n_steps", "n_rejected",
+                         "n_newton", "consec_rej", "acc_t", "acc_v",
+                         "stalled", "status", "dt_min")},
+                     rtol=float(rtol), budget=int(budget),
+                     max_attempts=int(max_attempts),
+                     event_mode=int(event_mode))
+    _raise_on(build.library().chem_sdirk_round(
+        ctypes.byref(mech_view(tm)), ctypes.byref(args), B, code,
+        _stream(state.y.device)), "sdirk_round")
+    LAUNCHES[launch_name("sdirk_round", problem)] += 1
+    return state
+
+
+__all__ = ["LAUNCHES", "PROBLEMS", "bordered_factor", "bordered_solve",
+           "launch_name", "reset_launches", "rhs", "rhs_jac", "sdirk_round"]

@@ -116,12 +116,13 @@ def build() -> str:
 def _bind(lib):
     P = ctypes.c_void_p
     I = ctypes.c_int
-    lib.chem_rhs.argtypes = [P, P, P, P, I, P]
-    lib.chem_rhs_jac.argtypes = [P, P, P, P, P, I, P]
+    lib.chem_rhs.argtypes = [P, P, P, P, I, I, P]
+    lib.chem_rhs_jac.argtypes = [P, P, P, P, P, I, I, P]
     lib.chem_bordered_factor.argtypes = [P, P, P, P, P, P, I, I, P]
     lib.chem_bordered_solve.argtypes = [P, P, P, P, P, P, I, I, P]
+    lib.chem_sdirk_round.argtypes = [P, P, I, I, P]
     for fn in (lib.chem_rhs, lib.chem_rhs_jac, lib.chem_bordered_factor,
-               lib.chem_bordered_solve):
+               lib.chem_bordered_solve, lib.chem_sdirk_round):
         fn.restype = ctypes.c_int
     return lib
 

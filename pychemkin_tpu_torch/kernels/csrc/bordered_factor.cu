@@ -13,14 +13,11 @@
 // Design: one block per lane holds the whole species block in shared memory
 // (22.5 KB for KK=53) and does the KK rank-1 Schur updates there, so the
 // LU costs no device-memory traffic beyond one read of J and one write of
-// the factor.
-#include "chem.cuh"
+// the factor. The lane body is chem::bordered_factor_lane (linalg.cuh),
+// which K5 runs on the Newton matrix it forms in shared memory.
+#include "linalg.cuh"
 
 namespace {
-
-__device__ __forceinline__ double clamp_diag(double d) {
-  return fabs(d) > 1e-30 ? d : (d >= 0.0 ? 1e-30 : -1e-30);
-}
 
 __global__ void bordered_factor_kernel(const double* __restrict__ J,
                                        const double* __restrict__ hg,
@@ -52,36 +49,7 @@ __global__ void bordered_factor_kernel(const double* __restrict__ J,
   }
   const double d = 1.0 - h * Jb[n * N + n];
   __syncthreads();
-
-  // pivot-free Doolittle: rank-1 Schur update of the trailing block
-  for (int k = 0; k < n - 1; ++k) {
-    const double piv = clamp_diag(A[k * n + k]);
-    for (int i = k + 1 + tid; i < n; i += nt) lcol[i] = A[i * n + k] / piv;
-    __syncthreads();
-    const int w = n - 1 - k;
-    for (int e = tid; e < w * w; e += nt) {
-      const int i = k + 1 + e / w, j = k + 1 + e % w;
-      A[i * n + j] -= lcol[i] * A[k * n + j];
-    }
-    for (int i = k + 1 + tid; i < n; i += nt) A[i * n + k] = lcol[i];
-    __syncthreads();
-  }
-  // v = A^-1 b: unit-L forward sweep, then U backward sweep
-  for (int k = 0; k < n - 1; ++k) {
-    const double xk = x[k];
-    for (int i = k + 1 + tid; i < n; i += nt) x[i] -= A[i * n + k] * xk;
-    __syncthreads();
-  }
-  for (int k = n - 1; k >= 0; --k) {
-    const double xk = x[k] / clamp_diag(A[k * n + k]);
-    __syncthreads();
-    if (tid == 0) x[k] = xk;
-    for (int i = tid; i < k; i += nt) x[i] -= A[i * n + k] * xk;
-    __syncthreads();
-  }
-  double part = 0.0;
-  for (int i = tid; i < n; i += nt) part += cs[i] * x[i];
-  const double cv = chem::block_sum(part, red);
+  const double ds = chem::bordered_factor_lane(A, x, cs, d, lcol, red, n);
 
   double* lub = lu + (size_t)b * n * n;
   for (int e = tid; e < n * n; e += nt) lub[e] = A[e];
@@ -89,7 +57,7 @@ __global__ void bordered_factor_kernel(const double* __restrict__ J,
     v[(size_t)b * n + i] = x[i];
     c[(size_t)b * n + i] = cs[i];
   }
-  if (tid == 0) dsch[b] = clamp_diag(d - cv);
+  if (tid == 0) dsch[b] = ds;
 }
 
 }  // namespace
@@ -106,6 +74,6 @@ extern "C" int chem_bordered_factor(const double* J, const double* hg,
       bordered_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bordered_factor_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(J, hg, lu, v, c, dsch, B, N);
+  CHEM_LAUNCH(B, threads, smem, stream, bordered_factor_kernel)(J, hg, lu, v, c, dsch, B, N);
   return (int)cudaGetLastError();
 }

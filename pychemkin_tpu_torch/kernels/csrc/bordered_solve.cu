@@ -12,24 +12,11 @@
 // thread keeping up to MAXR entries of the solution in registers; the
 // sweeps broadcast x_k with a shuffle and update the lanes' rows in
 // parallel, so the LU is read once per call and nothing else is staged
-// through memory.
-#include "chem.cuh"
+// through memory. The lane body is chem::bordered_solve_warp
+// (linalg.cuh), which K5 runs on its shared-memory factor.
+#include "linalg.cuh"
 
 namespace {
-
-constexpr int MAXR = 4;  // KK <= 32 * MAXR
-
-__device__ __forceinline__ double clamp_diag(double d) {
-  return fabs(d) > 1e-30 ? d : (d >= 0.0 ? 1e-30 : -1e-30);
-}
-
-__device__ __forceinline__ double pick(const double (&u)[MAXR], int m) {
-  double s = u[0];
-#pragma unroll
-  for (int r = 1; r < MAXR; ++r)
-    if (m == r) s = u[r];
-  return s;
-}
 
 __global__ void bordered_solve_kernel(const double* __restrict__ lu,
                                       const double* __restrict__ v,
@@ -41,47 +28,9 @@ __global__ void bordered_solve_kernel(const double* __restrict__ lu,
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b >= B) return;  // a whole warp leaves together
   const int n = N - 1;
-  const double* L = lu + (size_t)b * n * n;
-  const double* rb = r + (size_t)b * N;
-  double u[MAXR];
-#pragma unroll
-  for (int m = 0; m < MAXR; ++m) {
-    const int i = lane + 32 * m;
-    u[m] = i < n ? rb[i] : 0.0;
-  }
-  for (int k = 0; k < n - 1; ++k) {
-    const double xk = __shfl_sync(chem::FULL_MASK, pick(u, k >> 5), k & 31);
-#pragma unroll
-    for (int m = 0; m < MAXR; ++m) {
-      const int i = lane + 32 * m;
-      if (i > k && i < n) u[m] -= L[(size_t)i * n + k] * xk;
-    }
-  }
-  for (int k = n - 1; k >= 0; --k) {
-    const double xr = __shfl_sync(chem::FULL_MASK, pick(u, k >> 5), k & 31);
-    const double xk = xr / clamp_diag(L[(size_t)k * n + k]);
-#pragma unroll
-    for (int m = 0; m < MAXR; ++m) {
-      const int i = lane + 32 * m;
-      if (i == k) u[m] = xk;
-      else if (i < k) u[m] -= L[(size_t)i * n + k] * xk;
-    }
-  }
-  double part = 0.0;
-#pragma unroll
-  for (int m = 0; m < MAXR; ++m) {
-    const int i = lane + 32 * m;
-    if (i < n) part += c[(size_t)b * n + i] * u[m];
-  }
-  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(chem::FULL_MASK, part, o);
-  const double xT = (rb[n] - part) / dsch[b];
-  double* xb = x + (size_t)b * N;
-#pragma unroll
-  for (int m = 0; m < MAXR; ++m) {
-    const int i = lane + 32 * m;
-    if (i < n) xb[i] = u[m] - xT * v[(size_t)b * n + i];
-  }
-  if (lane == 0) xb[n] = xT;
+  chem::bordered_solve_warp(lu + (size_t)b * n * n, v + (size_t)b * n,
+                            c + (size_t)b * n, dsch[b], r + (size_t)b * N,
+                            x + (size_t)b * N, n, lane);
 }
 
 }  // namespace
@@ -91,9 +40,9 @@ extern "C" int chem_bordered_solve(const double* lu, const double* v,
                                    const double* r, double* x, int B, int N,
                                    void* stream) {
   if (B <= 0) return 0;
-  if (N - 1 > 32 * MAXR) return (int)cudaErrorInvalidValue;
+  if (N - 1 > 32 * chem::SOLVE_MAXR) return (int)cudaErrorInvalidValue;
   const int warps = 4;
   const int blocks = (B + warps - 1) / warps;
-  bordered_solve_kernel<<<blocks, 32 * warps, 0, (cudaStream_t)stream>>>(lu, v, c, dsch, r, x, B, N);
+  CHEM_LAUNCH(blocks, 32 * warps, 0, stream, bordered_solve_kernel)(lu, v, c, dsch, r, x, B, N);
   return (int)cudaGetLastError();
 }

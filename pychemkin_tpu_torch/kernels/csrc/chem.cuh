@@ -1,4 +1,5 @@
-// Rate and thermo device code shared by kernels K1 (rhs) and K2 (rhs_jac).
+// Rate and thermo device code shared by kernels K1 (rhs), K2 (rhs_jac) and
+// K5 (sdirk_round).
 //
 // One thread block integrates the chemistry of one reactor lane: the lane's
 // species and reaction intermediates live in shared memory, threads stride
@@ -10,14 +11,28 @@
 // The arithmetic is that of the JAX package's staged sparse kinetics
 // (ops/kinetics.py:_rop_intermediates_sparse), closed-form Jacobian
 // (ops/jacobian.py:kinetics_derivatives, _rate_constant_derivatives) and
-// the CONP/ENRG chain rule (ops/jacobian.py:_batch_jac_core), including the
-// +-85 exponent clip, the 1e-30 floors, sign(A) Arrhenius and the 50 K
-// temperature floor. Clamps propagate NaN as the reference's do.
+// the CONP/ENRG and CONV/ENRG chain rules (ops/jacobian.py:_batch_jac_core),
+// including the +-85 exponent clip, the 1e-30 floors, sign(A) Arrhenius and
+// the 50 K temperature floor. Clamps propagate NaN as the reference's do.
+//
+// The lane body chem_lane<JAC, PROB> is a __device__ function: K1 and K2
+// are thin __global__ wrappers around it, and K5 calls it for every RHS
+// and Jacobian of its step attempts, so all three compute one arithmetic.
+// PROB is the constraint of the reactor: CONP (the lane's value is its
+// pressure) or CONV (its density).
+//
+// Defining CHEM_EMU before the include compiles the device code as host
+// C++ (a harness then supplies the CUDA built-ins and runs each block's
+// threads on the CPU).
 #pragma once
 
 #ifndef CHEM_EMU
 #include <cuda_runtime.h>
 #define CHEM_DYN_SMEM(name) extern __shared__ double name[]
+// CHEM_LAUNCH(grid, block, smem, stream, kernel)(args...): the kernel last,
+// so that a template's commas stay inside the variadic argument
+#define CHEM_LAUNCH(grid, block, smem, stream, ...) \
+  __VA_ARGS__<<<(grid), (block), (smem), (cudaStream_t)(stream)>>>
 #endif
 
 namespace chem {
@@ -29,6 +44,9 @@ constexpr double T_FLOOR = 50.0;
 constexpr int FALLOFF_TROE = 2;
 constexpr int FALLOFF_SRI = 3;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// reactor constraint of a lane (template parameter PROB)
+constexpr int CONP = 0;
+constexpr int CONV = 1;
 
 // Device views of a TorchMechanism (kernels/__init__.py builds the same
 // layout with ctypes: pointers first, then doubles, then ints).
@@ -62,9 +80,14 @@ struct MechView {
   int KK, II, n_fo, n_tb, n_rev, pad;
 };
 
-// max(a, b) that keeps a NaN in a (jnp.maximum / torch.clamp semantics)
+// max(a, b) and min(a, b) that keep a NaN of either argument
+// (jnp.maximum / torch.clamp semantics)
 __device__ __forceinline__ double maxp(double a, double b) {
   return (a > b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ double minp(double a, double b) {
+  return (a < b || a != a) ? a : b;
 }
 
 __device__ __forceinline__ double clip85(double x) {
@@ -231,21 +254,46 @@ __device__ void falloff_row(const MechView& m, int j, double T, double lnT,
   *dM_out = dbl_M * F + bl * dF_M;
 }
 
-// Number of doubles of dynamic shared memory one lane needs.
+// Number of doubles of dynamic shared memory one lane needs; without JAC
+// it is also the offset of the KK x KK block D (dwdot/dC) that K2 and K5
+// place last.
 __host__ __device__ inline int lane_smem_doubles(int KK, int II, int n_tb,
                                                  bool jac) {
   return 13 * KK + 13 * II + n_tb + 32 + (jac ? KK * KK : 0);
 }
 
-// One lane of the CONP/ENRG RHS (K1) or of the fused (f, J) (K2).
-template <bool JAC>
-__global__ void chem_kernel(MechView m, const double* __restrict__ y,
-                            const double* __restrict__ P,
-                            double* __restrict__ f, double* __restrict__ J,
-                            int B) {
-  CHEM_DYN_SMEM(sm);
-  const int b = blockIdx.x;
-  if (b >= B) return;
+// Molar energy / (R T) and molar heat capacity / R of the energy equation:
+// enthalpy and cp at constant pressure, internal energy u = h - RT and
+// cv = cp - R at constant volume.
+template <int PROB>
+__device__ __forceinline__ double energy_RT(double h_RT) {
+  return PROB == CONP ? h_RT : h_RT - 1.0;
+}
+
+template <int PROB>
+__device__ __forceinline__ double heat_cap_R(double cp_R) {
+  return PROB == CONP ? cp_R : cp_R - 1.0;
+}
+
+// Sink of the lane's Jacobian entries: K2 stores J row-major in device
+// memory (K5 forms the Newton matrix from them instead, sdirk_round.cu).
+struct JacToGlobal {
+  double* J;
+  int N;
+  __device__ void operator()(int i, int j, double v) const { J[i * N + j] = v; }
+};
+
+// One lane of the RHS (K1, JAC false) or of the fused (f, J) (K2 and K5,
+// JAC true) at the state yb [N] and the lane's constraint value cval
+// (pressure for CONP, density for CONV). ``sm`` is the block's dynamic
+// shared memory (lane_smem_doubles(JAC) doubles); f goes to fb [N], and each
+// J entry to ``jac(i, j, value)``. yb must be visible to every thread on
+// entry, and fb is complete only after the caller's next __syncthreads().
+// With JAC the sink may overwrite D[i * KK + j] for the species block:
+// that entry is read last by the thread that computes J(i, j).
+template <bool JAC, int PROB, class Sink>
+__device__ void chem_lane(const MechView& m, const double* yb, double cval,
+                          double* sm, double* fb, const Sink& jac) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int KK = m.KK, II = m.II, N = KK + 1;
   const double R = m.r_gas;
@@ -280,21 +328,26 @@ __global__ void chem_kernel(MechView m, const double* __restrict__ y,
   double* red = G + m.n_tb;
   double* D = red + 32;
 
-  const double* yb = y + (size_t)b * N;
   const double Traw = yb[KK];
   const double T = maxp(Traw, T_FLOOR);
   const double lnT = log(T);
 
-  // mixture: s = sum Y/W, rho = P Wbar / (R T)
-  double part = 0.0;
-  for (int k = tid; k < KK; k += nt) {
-    const double Yk = yb[k];
-    Yv[k] = Yk;
-    part += Yk * (1.0 / m.wt[k]);
+  // mixture: CONP s = sum Y/W, rho = P Wbar / (R T); CONV rho given
+  double s_w = 0.0, Wbar = 0.0, rho;
+  if (PROB == CONP) {
+    double part = 0.0;
+    for (int k = tid; k < KK; k += nt) {
+      const double Yk = yb[k];
+      Yv[k] = Yk;
+      part += Yk * (1.0 / m.wt[k]);
+    }
+    s_w = block_sum(part, red);
+    Wbar = 1.0 / maxp(s_w, 1e-30);
+    rho = cval * Wbar / (R * T);
+  } else {
+    for (int k = tid; k < KK; k += nt) Yv[k] = yb[k];
+    rho = cval;
   }
-  const double s_w = block_sum(part, red);
-  const double Wbar = 1.0 / maxp(s_w, 1e-30);
-  const double rho = P[b] * Wbar / (R * T);
 
   // species: concentrations and NASA-7 polynomials
   for (int k = tid; k < KK; k += nt) {
@@ -418,112 +471,148 @@ __global__ void chem_kernel(MechView m, const double* __restrict__ y,
   }
   __syncthreads();
 
-  double* fb = f + (size_t)b * N;
-  if (!JAC) {
+  // energy row: e_k = h_k (CONP) or u_k (CONV), molar; c = cp or cv
+  const double RT = R * T;
+  if constexpr (!JAC) {
     double ph = 0.0, pc = 0.0;
     for (int k = tid; k < KK; k += nt) {
-      ph += hrt[k] * (R * T) * wdot[k];
-      pc += Yv[k] * (cpr[k] * R / m.wt[k]);
+      ph += energy_RT<PROB>(hrt[k]) * RT * wdot[k];
+      pc += Yv[k] * (heat_cap_R<PROB>(cpr[k]) * R / m.wt[k]);
       fb[k] = wdot[k] * m.wt[k] / rho;
     }
     const double hw = block_sum(ph, red);
     const double cp = block_sum(pc, red);
     if (tid == 0) fb[KK] = (-hw / rho) / cp;
-    return;
-  }
-
-  // dwdot/dC: one deterministic sum per entry over its triple segment,
-  // scaled by d(lnC)/dC, plus the third-body correction
-  for (int e = tid; e < KK * KK; e += nt) {
-    const int ko = e / KK, ki = e - ko * KK;
-    double acc = 0.0;
-    for (int t = m.jac_ptr[e]; t < m.jac_ptr[e + 1]; ++t) {
-      const int r = m.jac_rxn[t];
-      acc += qfg[r] * m.jac_cf[t] - qrg[r] * m.jac_cr[t];
-    }
-    double tbc = 0.0;
-    for (int t = m.tbs_ptr[ko]; t < m.tbs_ptr[ko + 1]; ++t) {
-      const int j = m.tbs_row[t];
-      tbc += m.tbs_nu[t] * G[j] * m.tb_eff[(size_t)j * KK + ki];
-    }
-    D[e] = acc * dln[ki] + tbc;
-  }
-  __syncthreads();
-  for (int k = tid; k < KK; k += nt) {
-    double dc = 0.0, hd = 0.0;
-    for (int j = 0; j < KK; ++j) {
-      dc += D[k * KK + j] * C[j];
-      hd += hrt[j] * (R * T) * D[j * KK + k];
-    }
-    DC[k] = dc;
-    hD[k] = hd;
-  }
-  __syncthreads();
-  double p_hw = 0.0, p_cp = 0.0, p_hdc = 0.0, p_cpw = 0.0, p_hdw = 0.0, p_dcp = 0.0;
-  for (int k = tid; k < KK; k += nt) {
-    const double h = hrt[k] * (R * T);
-    const double dw = wT[k] - DC[k] / T;
-    dwdT[k] = dw;
-    p_hw += h * wdot[k];
-    p_cp += Yv[k] * (cpr[k] * R / m.wt[k]);
-    p_hdc += h * DC[k];
-    p_cpw += (cpr[k] * R) * wdot[k];
-    p_hdw += h * dw;
-    p_dcp += Yv[k] * (dcpr[k] * R / m.wt[k]);
-  }
-  const double hw = block_sum(p_hw, red);
-  const double cp = block_sum(p_cp, red);
-  const double hDC = block_sum(p_hdc, red);
-  const double cpw = block_sum(p_cpw, red);
-  const double hdw = block_sum(p_hdw, red);
-  const double dcp_dT = block_sum(p_dcp, red);
-
-  const double i_s = s_w > 1e-30 ? 1.0 : 0.0;
-  const double mT = Traw > T_FLOOR ? 1.0 : 0.0;
-  const double dTdt = (-hw / rho) / cp;
-  const double dN_dT = -(cpw + hdw) / rho - hw / (rho * T);
-  const double J_TT = (dN_dT - dTdt * dcp_dT) / cp;
-
-  double* Jb = J + (size_t)b * N * N;
-  for (int e = tid; e < N * N; e += nt) {
-    const int i = e / N, j = e - i * N;
-    double val;
-    if (i < KK) {
-      const double dYdt = wdot[i] * m.wt[i] / rho;
-      if (j < KK) {
-        const double rw = Wbar / m.wt[j] * i_s;
-        val = D[i * KK + j] * (m.wt[i] / m.wt[j])
-            + (dYdt - m.wt[i] * DC[i] / rho) * rw;
-      } else {
-        val = ((m.wt[i] / rho) * dwdT[i] + dYdt / T) * mT;
+  } else {
+    // dwdot/dC: one deterministic sum per entry over its triple segment,
+    // scaled by d(lnC)/dC, plus the third-body correction
+    for (int e = tid; e < KK * KK; e += nt) {
+      const int ko = e / KK, ki = e - ko * KK;
+      double acc = 0.0;
+      for (int t = m.jac_ptr[e]; t < m.jac_ptr[e + 1]; ++t) {
+        const int r = m.jac_rxn[t];
+        acc += qfg[r] * m.jac_cf[t] - qrg[r] * m.jac_cr[t];
       }
-    } else if (j < KK) {
-      const double rw = Wbar / m.wt[j] * i_s;
-      const double cpk = cpr[j] * R / m.wt[j];
-      const double dN_dY = (-hw + hDC) * rw / rho - hD[j] / m.wt[j];
-      val = dN_dY / cp - dTdt * cpk / cp;
-    } else {
-      val = J_TT * mT;
+      double tbc = 0.0;
+      for (int t = m.tbs_ptr[ko]; t < m.tbs_ptr[ko + 1]; ++t) {
+        const int j = m.tbs_row[t];
+        tbc += m.tbs_nu[t] * G[j] * m.tb_eff[(size_t)j * KK + ki];
+      }
+      D[e] = acc * dln[ki] + tbc;
     }
-    Jb[e] = val;
+    __syncthreads();
+    // D C (CONP only: C depends on T and Y through rho) and e^T D
+    for (int k = tid; k < KK; k += nt) {
+      double dc = 0.0, hd = 0.0;
+      for (int j = 0; j < KK; ++j) {
+        if (PROB == CONP) dc += D[k * KK + j] * C[j];
+        hd += energy_RT<PROB>(hrt[j]) * RT * D[j * KK + k];
+      }
+      DC[k] = dc;
+      hD[k] = hd;
+    }
+    __syncthreads();
+    double p_hw = 0.0, p_cp = 0.0, p_hdc = 0.0, p_cpw = 0.0, p_hdw = 0.0, p_dcp = 0.0;
+    for (int k = tid; k < KK; k += nt) {
+      const double h = energy_RT<PROB>(hrt[k]) * RT;
+      const double dw = PROB == CONP ? wT[k] - DC[k] / T : wT[k];
+      dwdT[k] = dw;
+      p_hw += h * wdot[k];
+      p_cp += Yv[k] * (heat_cap_R<PROB>(cpr[k]) * R / m.wt[k]);
+      if (PROB == CONP) p_hdc += h * DC[k];
+      p_cpw += (heat_cap_R<PROB>(cpr[k]) * R) * wdot[k];
+      p_hdw += h * dw;
+      p_dcp += Yv[k] * (dcpr[k] * R / m.wt[k]);
+    }
+    const double hw = block_sum(p_hw, red);
+    const double cp = block_sum(p_cp, red);
+    const double hDC = PROB == CONP ? block_sum(p_hdc, red) : 0.0;
+    const double cpw = block_sum(p_cpw, red);
+    const double hdw = block_sum(p_hdw, red);
+    const double dcp_dT = block_sum(p_dcp, red);
+
+    const double i_s = s_w > 1e-30 ? 1.0 : 0.0;
+    const double mT = Traw > T_FLOOR ? 1.0 : 0.0;
+    const double dTdt = (-hw / rho) / cp;
+    const double dN_dT = PROB == CONP ? -(cpw + hdw) / rho - hw / (rho * T)
+                                      : -(cpw + hdw) / rho;
+    const double J_TT = (dN_dT - dTdt * dcp_dT) / cp;
+
+    for (int e = tid; e < N * N; e += nt) {
+      const int i = e / N, j = e - i * N;
+      double val;
+      if (i < KK) {
+        const double dYdt = wdot[i] * m.wt[i] / rho;
+        if (j < KK) {
+          if (PROB == CONP) {
+            const double rw = Wbar / m.wt[j] * i_s;
+            val = D[i * KK + j] * (m.wt[i] / m.wt[j])
+                + (dYdt - m.wt[i] * DC[i] / rho) * rw;
+          } else {
+            val = D[i * KK + j] * (m.wt[i] / m.wt[j]);
+          }
+        } else if (PROB == CONP) {
+          val = ((m.wt[i] / rho) * dwdT[i] + dYdt / T) * mT;
+        } else {
+          val = ((m.wt[i] / rho) * dwdT[i]) * mT;
+        }
+      } else if (j < KK) {
+        const double cpk = heat_cap_R<PROB>(cpr[j]) * R / m.wt[j];
+        if (PROB == CONP) {
+          const double rw = Wbar / m.wt[j] * i_s;
+          const double dN_dY = (-hw + hDC) * rw / rho - hD[j] / m.wt[j];
+          val = dN_dY / cp - dTdt * cpk / cp;
+        } else {
+          val = (-hD[j] / m.wt[j]) / cp - dTdt * cpk / cp;
+        }
+      } else {
+        val = J_TT * mT;
+      }
+      jac(i, j, val);
+    }
+    for (int k = tid; k < KK; k += nt) fb[k] = wdot[k] * m.wt[k] / rho;
+    if (tid == 0) fb[KK] = dTdt;
   }
-  for (int k = tid; k < KK; k += nt) fb[k] = wdot[k] * m.wt[k] / rho;
-  if (tid == 0) fb[KK] = dTdt;
 }
 
-// Launch one chemistry kernel: one block of `threads` per lane.
-template <bool JAC>
-inline int launch_chem(const MechView* m, const double* y, const double* P,
-                       double* f, double* J, int B, void* stream) {
-  if (B <= 0) return 0;
+// K1 (JAC false) and K2 (JAC true): one block per lane.
+template <bool JAC, int PROB>
+__global__ void chem_kernel(MechView m, const double* __restrict__ y,
+                            const double* __restrict__ cval,
+                            double* __restrict__ f, double* __restrict__ J,
+                            int B) {
+  CHEM_DYN_SMEM(sm);
+  const int b = blockIdx.x;
+  if (b >= B) return;
+  const int N = m.KK + 1;
+  chem_lane<JAC, PROB>(m, y + (size_t)b * N, cval[b], sm, f + (size_t)b * N,
+                       JacToGlobal{J + (size_t)b * N * N, N});
+}
+
+template <bool JAC, int PROB>
+inline int launch_chem_as(const MechView* m, const double* y,
+                          const double* cval, double* f, double* J, int B,
+                          void* stream) {
   const int threads = 256;
   const size_t smem = sizeof(double) * lane_smem_doubles(m->KK, m->II, m->n_tb, JAC);
-  cudaError_t err = cudaFuncSetAttribute(chem_kernel<JAC>,
+  cudaError_t err = cudaFuncSetAttribute(chem_kernel<JAC, PROB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  chem_kernel<JAC><<<B, threads, smem, (cudaStream_t)stream>>>(*m, y, P, f, J, B);
+  CHEM_LAUNCH(B, threads, smem, stream, chem_kernel<JAC, PROB>)(*m, y, cval, f, J, B);
   return (int)cudaGetLastError();
+}
+
+// Launch one chemistry kernel for ``problem`` (CONP or CONV): one block
+// of 256 threads per lane.
+template <bool JAC>
+inline int launch_chem(const MechView* m, const double* y, const double* cval,
+                       double* f, double* J, int B, int problem,
+                       void* stream) {
+  if (B <= 0) return 0;
+  if (problem == CONP) return launch_chem_as<JAC, CONP>(m, y, cval, f, J, B, stream);
+  if (problem == CONV) return launch_chem_as<JAC, CONV>(m, y, cval, f, J, B, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace chem

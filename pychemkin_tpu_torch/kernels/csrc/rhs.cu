@@ -1,7 +1,9 @@
-// K1 rhs: the adiabatic constant-pressure RHS f = dy/dt, [B, N] -> [B, N].
+// K1 rhs: the adiabatic RHS f = dy/dt at constant pressure (CONP) or
+// constant volume (CONV), [B, N] -> [B, N].
 //
-// Replaces the JAX package's CONP/ENRG RHS chain: ops/reactors.py:100
-// conp_enrg_rhs -> ops/kinetics.py:610 rop_intermediates -> :558
+// Replaces the JAX package's ENRG RHS chain: ops/reactors.py:100
+// conp_enrg_rhs and :132 conv_enrg_rhs -> ops/kinetics.py:610
+// rop_intermediates -> :558
 // _rop_intermediates_sparse (with :234 _arrhenius, :290 falloff_blend,
 // :504 _reverse_rates_sparse, :475 _staged_kc_terms, :530
 // _conc_product_args_sparse, :215 _nu_T_contract) and ops/thermo.py:26-66.
@@ -11,11 +13,13 @@
 // work is ~II transcendentals and ~nnz(ord)+nnz(nu) multiply-adds per lane,
 // a few microseconds of FP64 at the card's peak. Design: one block per lane
 // keeps every intermediate in shared memory (no device-memory traffic
-// beyond y, P and f) and reads the staged CSR ranges, so each sum is one
-// deterministic loop. Called ~7 times per step attempt by the Newton loop.
+// beyond y, the lane's pressure or density, and f) and reads the staged CSR
+// ranges, so each sum is one deterministic loop. The lane body
+// (chem::chem_lane<false, PROB>) is also K5's RHS, ~7 times per attempt.
 #include "chem.cuh"
 
 extern "C" int chem_rhs(const chem::MechView* m, const double* y,
-                        const double* P, double* f, int B, void* stream) {
-  return chem::launch_chem<false>(m, y, P, f, nullptr, B, stream);
+                        const double* cval, double* f, int B, int problem,
+                        void* stream) {
+  return chem::launch_chem<false>(m, y, cval, f, nullptr, B, problem, stream);
 }

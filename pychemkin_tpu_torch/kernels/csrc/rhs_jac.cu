@@ -1,8 +1,9 @@
-// K2 rhs_jac: the fused CONP/ENRG (f, J) from one evaluation of the rate
-// ladder, y [B, N] -> f [B, N], J [B, N, N].
+// K2 rhs_jac: the fused CONP/ENRG or CONV/ENRG (f, J) from one evaluation
+// of the rate ladder, y [B, N] -> f [B, N], J [B, N, N].
 //
 // Replaces ops/jacobian.py:710 fused_rhs_jacobian -> :558 _batch_jac_core
-// (with_rhs=True), :374 kinetics_derivatives, :230
+// (with_rhs=True; its CONP and CONV branches), :374 kinetics_derivatives,
+// :230
 // _rate_constant_derivatives and the COO triple products of :118
 // _stoich_coo (grisyn: 4071 triples), on top of the rate ladder K1 shares
 // (chem.cuh).
@@ -12,11 +13,12 @@
 // chain rule and the rate ladder) is of the same order at FP64 peak. Design:
 // dwdot/dC is built in shared memory (KK^2 doubles), one thread per output
 // entry summing its own jac_seg segment (deterministic, no atomics), and J
-// is written once, row-major and coalesced.
+// is written once, row-major and coalesced. K5 runs the same lane body
+// (chem::chem_lane<true, PROB>) with M = I - h gamma J as the sink.
 #include "chem.cuh"
 
 extern "C" int chem_rhs_jac(const chem::MechView* m, const double* y,
-                            const double* P, double* f, double* J, int B,
-                            void* stream) {
-  return chem::launch_chem<true>(m, y, P, f, J, B, stream);
+                            const double* cval, double* f, double* J, int B,
+                            int problem, void* stream) {
+  return chem::launch_chem<true>(m, y, cval, f, J, B, problem, stream);
 }

@@ -1,13 +1,14 @@
-"""Closed-form kinetics Jacobian and the fused CONP/ENRG (f, J), batch-first
-(plain PyTorch twin of kernel K2).
+"""Closed-form kinetics Jacobian and the fused CONP/ENRG and CONV/ENRG
+(f, J), batch-first (plain PyTorch twins of kernel K2).
 
 Counterpart of the JAX package's ``ops/jacobian.py``:
 ``kinetics_derivatives`` on the staged sparse path, the rate-constant
-derivatives of ``_rate_constant_derivatives`` and the CONP/ENRG branch
-of ``_batch_jac_core(..., with_rhs=True)``. Where the reference takes
-the falloff blend's d/dT and d/d[M] with a two-wide ``jacfwd``, this
-module writes the derivative out in closed form (the CUDA kernel needs
-it so), with the same clamp indicators AD propagates: 0 where a
+derivatives of ``_rate_constant_derivatives`` and the CONP/ENRG and
+CONV/ENRG branches of ``_batch_jac_core(..., with_rhs=True)``. Where the
+reference takes the falloff blend's d/dT and d/d[M] with a two-wide
+``jacfwd``, this module writes the derivative out in closed form (the
+CUDA kernel needs it so), with the same clamp indicators AD propagates:
+0 where a
 ``clip``/floor is active, 1 inside.
 
 Shapes: T [B], C [B, KK], y [B, N] with N = KK + 1, J [B, N, N].
@@ -277,6 +278,46 @@ def conp_enrg_rhs_jac(tm, y, P):
              - hw / (rho * T))
     dcp_dT = (Y * (thermo.dcp_R_dT(tm, T) * R_GAS / wt)).sum(-1)
     J_TT = (dN_dT - dTdt * dcp_dT) / cp
+
+    top = torch.cat([J_YY, (J_YT * mT[:, None])[:, :, None]], dim=2)
+    bot = torch.cat([J_TY, (J_TT * mT)[:, None]], dim=1)[:, None, :]
+    J = torch.cat([top, bot], dim=1)
+    f = torch.cat([dYdt, dTdt[:, None]], dim=1)
+    return f, J
+
+
+def conv_enrg_rhs_jac(tm, y, rho):
+    """Fused CONV/ENRG (f, J) for an adiabatic reactor at the fixed
+    density ``rho`` [B] g/cm^3 (unit volume, constant mass): the CONV
+    branch of the reference's chain rule. C = rho Y / W does not depend
+    on T, so J_YY = D (W_i / W_j) and J_YT = (W / rho) dwdot/dT; the T row
+    uses cv and the molar internal energies u = (h/RT - 1) R T (the
+    P dV/dt work term vanishes at constant volume)."""
+    KK = tm.KK
+    wt = tm.wt
+    Y = y[:, :KK]
+    T = torch.clamp(y[:, KK], min=T_FLOOR)
+    mT = (y[:, KK] > T_FLOOR).to(y.dtype)
+    C = thermo.Y_to_C(tm, Y, rho)
+    nasa = thermo.nasa7(tm, T)
+    d = kinetics_derivatives(tm, T, C, nasa)
+    wdot, D, w_T = d.wdot, d.dwdot_dC, d.dwdot_dT
+    rho_ = rho[:, None]
+    dYdt = wdot * wt / rho_
+    J_YY = D * (wt[:, None] / wt[None, :])[None]
+    J_YT = (wt / rho_) * w_T
+
+    cv_molar = thermo.cv_R(tm, T, nasa) * R_GAS
+    cvk = cv_molar / wt
+    cv = thermo.mixture_cv_mass(tm, T, Y, nasa)
+    u = thermo.u_RT(tm, T, nasa) * (R_GAS * T[:, None])
+    uD = (u[:, None, :] @ D)[:, 0, :]
+    uw = (u * wdot).sum(-1)
+    dTdt = (-uw / rho) / cv
+    J_TY = (-uD / wt) / cv[:, None] - dTdt[:, None] * cvk / cv[:, None]
+    dN_dT = -((cv_molar * wdot).sum(-1) + (u * w_T).sum(-1)) / rho
+    dcv_dT = (Y * (thermo.dcp_R_dT(tm, T) * R_GAS / wt)).sum(-1)
+    J_TT = (dN_dT - dTdt * dcv_dT) / cv
 
     top = torch.cat([J_YY, (J_YT * mT[:, None])[:, :, None]], dim=2)
     bot = torch.cat([J_TY, (J_TT * mT)[:, None]], dim=1)[:, None, :]

@@ -1,5 +1,5 @@
 """SDIRK3 stiff integration over [B] lanes as masked PyTorch code around
-the four kernels.
+the kernels K1-K4: the plain twin of the step-round kernel K5.
 
 Counterpart of the JAX package's ``ops/odeint.py``: the same tableau
 (Alexander's 3-stage L-stable SDIRK, with its order conditions asserted
@@ -18,7 +18,9 @@ module runs the batch in Python loops:
 The attempt calls ``ops.rhs_jac`` once (kernel K2), ``ops.factor`` once
 (K3), ``ops.rhs`` once per Newton iteration (K1) and ``ops.solve`` once
 per Newton iteration plus once for the error filter (K4). ``ops`` is
-either the kernel wrappers or the plain twins.
+either the kernel wrappers or the plain twins. On the card the sweep
+runs :func:`sweep_round` as one kernel instead (``kernels.sdirk_round``,
+K5), and this loop over the plain twins is that kernel's reference.
 """
 
 from __future__ import annotations
@@ -79,9 +81,10 @@ class Event(NamedTuple):
 
 
 class Lanes(NamedTuple):
-    """Per-lane constants of a sweep: pressure [B] (dyne/cm^2), absolute
+    """Per-lane constants of a sweep: the constraint value [B] (pressure
+    in dyne/cm^2 for CONP, density in g/cm^3 for CONV), absolute
     tolerances [B, N], end time [B] and the event threshold [B]."""
-    P: Any
+    constraint: Any
     atol: Any
     t_end: Any
     thresh: Any
@@ -106,8 +109,8 @@ class StepState(NamedTuple):
 
 class Ops(NamedTuple):
     """The four kernel functions the integrator calls."""
-    rhs: Callable          # (tm, y, P) -> f
-    rhs_jac: Callable      # (tm, y, P) -> (f, J)
+    rhs: Callable          # (tm, y, constraint) -> f
+    rhs_jac: Callable      # (tm, y, constraint) -> (f, J)
     factor: Callable       # (J, hg) -> factor
     solve: Callable        # (factor, r) -> x
 
@@ -138,7 +141,7 @@ def _newton_stage(ops, tm, lanes, y_base, z0, h, fac, w):
     prev_dn = torch.full((B,), float("inf"), dtype=z0.dtype, device=dev)
     run = torch.ones(B, dtype=torch.bool, device=dev)
     while bool(run.any()):
-        g = z - h[:, None] * ops.rhs(tm, y_base + _GAMMA * z, lanes.P)
+        g = z - h[:, None] * ops.rhs(tm, y_base + _GAMMA * z, lanes.constraint)
         dz = ops.solve(fac, -g)
         dn = _norm(dz, w)
         dn = torch.where(torch.isfinite(dn), dn,
@@ -223,7 +226,7 @@ def attempt(ops, tm, lanes, events, rtol, s: StepState) -> StepState:
     h = torch.minimum(torch.maximum(s.h, dt_min), remaining)
     clipped = s.h > remaining
 
-    _, J = ops.rhs_jac(tm, s.y, lanes.P)
+    _, J = ops.rhs_jac(tm, s.y, lanes.constraint)
     fac = ops.factor(J, h * _GAMMA)
     w = lanes.atol + rtol * torch.abs(s.y)
     hc = h[:, None]
@@ -301,7 +304,7 @@ def sweep_start(ops, tm, lanes, y0, rtol, events) -> StepState:
     dev, dt = y0.device, y0.dtype
     t0 = torch.zeros(B, dtype=dt, device=dev)
     t_span = torch.clamp(lanes.t_end - t0, min=1e-30)
-    f0 = ops.rhs(tm, y0, lanes.P)
+    f0 = ops.rhs(tm, y0, lanes.constraint)
     h_init = initial_step(f0, y0, lanes.atol, rtol, t_span)
     n_ev = max(len(events), 1)
     acc_t0 = torch.tensor([float("inf") if ev.kind == "crossing"
@@ -327,6 +330,13 @@ def _put(tree, idx, sub):
     return type(tree)(*[x.index_copy(0, idx, s) for x, s in zip(tree, sub)])
 
 
+def sweep_going(state: StepState, lanes, budget):
+    """[B] lanes still stepping: short of t_end, not stalled, and under
+    ``budget`` attempts (the reference's loop condition)."""
+    return ((state.t < lanes.t_end) & ~state.stalled
+            & (state.n_steps + state.n_rejected < budget))
+
+
 def sweep_round(ops, tm, lanes, events, rtol, budget, state: StepState,
                 max_attempts: int | None = None) -> StepState:
     """Step every lane until it reaches t_end, stalls or uses ``budget``
@@ -336,8 +346,7 @@ def sweep_round(ops, tm, lanes, events, rtol, budget, state: StepState,
     B = state.t.shape[0]
     k = 0
     while max_attempts is None or k < max_attempts:
-        go = ((state.t < lanes.t_end) & ~state.stalled
-              & (state.n_steps + state.n_rejected < budget))
+        go = sweep_going(state, lanes, budget)
         idx = torch.nonzero(go).flatten()
         n = idx.numel()
         if n == 0:

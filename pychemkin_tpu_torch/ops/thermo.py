@@ -56,6 +56,18 @@ def nasa7(tm, T):
     return cp, h, s
 
 
+def cv_R(tm, T, nasa=None):
+    """Species molar heat capacity Cv/R (ideal gas), [B, KK]; ``nasa`` is
+    :func:`nasa7` at T where the caller already has it."""
+    return (nasa7(tm, T) if nasa is None else nasa)[0] - 1.0
+
+
+def u_RT(tm, T, nasa=None):
+    """Species molar internal energy u/(RT), [B, KK]; ``nasa`` as in
+    :func:`cv_R`."""
+    return (nasa7(tm, T) if nasa is None else nasa)[1] - 1.0
+
+
 def dcp_R_dT(tm, T):
     """d(Cp/R)/dT, [B, KK] (1/K)."""
     a = _select_coeffs(tm, T)
@@ -86,6 +98,17 @@ def density(tm, T, P, Y):
     return P * mean_molecular_weight_Y(tm, Y) / (R_GAS * T)
 
 
+def pressure(tm, T, rho, Y):
+    """Pressure from density (ideal gas), dyne/cm^2, [B]."""
+    return rho * R_GAS * T / mean_molecular_weight_Y(tm, Y)
+
+
 def mixture_cp_mass(tm, T, Y):
-    """Mixture specific heat, erg/(g K), [B]."""
+    """Mixture specific heat at constant pressure, erg/(g K), [B]."""
     return (Y * (cp_R(tm, T) * R_GAS / tm.wt)).sum(-1)
+
+
+def mixture_cv_mass(tm, T, Y, nasa=None):
+    """Mixture specific heat at constant volume, erg/(g K), [B]; ``nasa``
+    as in :func:`cv_R`."""
+    return (Y * (cv_R(tm, T, nasa) * R_GAS / tm.wt)).sum(-1)

@@ -108,11 +108,11 @@ def test_stepping_parity_after_40_attempts(jax_sweep):
                             for a in _inputs(rec, T_END))
     events = reactors.ignition_events(reactors.IGN_T_INFLECTION)
     lanes, y0 = reactors.sweep_lane_args(tm, T0, P0, Y0, t_end, atol=ATOL)
+    ops = reactors.kernel_ops("CONP")
     with torch.inference_mode():
-        s = odeint.sweep_start(reactors.KERNEL_OPS, tm, lanes, y0, RTOL,
-                               events)
-        s = odeint.sweep_round(reactors.KERNEL_OPS, tm, lanes, events, RTOL,
-                               20_000, s, max_attempts=40)
+        s = odeint.sweep_start(ops, tm, lanes, y0, RTOL, events)
+        s = odeint.sweep_round(ops, tm, lanes, events, RTOL, 20_000, s,
+                               max_attempts=40)
     np.testing.assert_array_equal(s.n_steps.numpy(), jstate.n_steps)
     np.testing.assert_array_equal(s.n_rejected.numpy(), jstate.n_rejected)
     np.testing.assert_array_equal(s.n_newton.numpy(), jstate.n_newton)
@@ -166,11 +166,21 @@ def test_cuda_request_raises_without_a_card():
                                        device="meta"))
 
 
-def test_unported_variants_raise():
+@pytest.mark.parametrize("problem, energy, ported", [
+    ("CONV", "ENRG", True), ("CONP", "TGIV", False), ("CONV", "TGIV", False)])
+def test_unported_variants_raise(problem, energy, ported):
+    """CONV/ENRG runs (to a short horizon here; its parity with the JAX
+    package is in test_torch_sdirk.py); the TGIV variants raise."""
     rec = tmech.load_embedded("h2o2")
-    args = _inputs(rec, 2e-3)[:4]
-    with pytest.raises(NotImplementedError, match="CONP/ENRG"):
-        reactors.ignition_delay_sweep(rec, "CONV", "ENRG", *args,
+    args = _inputs(rec, 1e-6)[:4]
+    if ported:
+        times, ok, status = reactors.ignition_delay_sweep(
+            rec, problem, energy, *args, device="cpu")
+        assert times.shape == ok.shape == status.shape == (T0S.size,)
+        assert (status.numpy() == int(SolveStatus.OK)).all()
+        return
+    with pytest.raises(NotImplementedError, match="CONP/ENRG and CONV/ENRG"):
+        reactors.ignition_delay_sweep(rec, problem, energy, *args,
                                       device="cpu")
 
 
@@ -305,7 +315,7 @@ def test_event_accumulators_match_jax(mode):
     want = jax.vmap(one, in_axes=(1, 1, 1, 0, 0, 0))(
         ts, ys, fs, acc_t, acc_v, active)
     tev = reactors.ignition_events(mode)
-    lanes = odeint.Lanes(P=None, atol=None, t_end=None,
+    lanes = odeint.Lanes(constraint=None, atol=None, t_end=None,
                          thresh=torch.tensor(T0 + 400.0))
     samples = [(torch.tensor(ts[j]), torch.tensor(ys[j]),
                 torch.tensor(fs[j])) for j in range(4)]
