@@ -3,7 +3,7 @@
 
 Phases, each of which raises on failure (exit code != 0):
 
-1. build the five CUDA kernels from ``pychemkin_tpu_torch/kernels/csrc``
+1. build the seven CUDA kernels from ``pychemkin_tpu_torch/kernels/csrc``
    and print each kernel's registers and spills;
 2. at grisyn shapes (KK=53, II=325, N=54) and B lanes, call each kernel
    through the wrapper the sweep calls, hold it against its plain
@@ -15,6 +15,15 @@ Phases, each of which raises on failure (exit code != 0):
    from a sweep's start state, T_rise from each lane's last state before
    its crossing) against the masked loop over the plain twins, for CONP
    and CONV;
+2c. the steady-state kernels against their twins on the card: K6
+   (equilibrium) at grisyn B=4096 for options 1 and 5 and at h2o2 B=256
+   for all nine options; K7 (PSR) at grisyn B=256 from cold inlets whose
+   solves converge, some through the pseudo-transient phase, and at h2o2
+   B=256 for each of tau/vol x ENRG/TGIV: the same status and Newton
+   counts as the twin on 99 % of the lanes, not counting those where the
+   two differ and the twin's own outcome moves when the guess moves by
+   1e-15 (rounding-chaotic rescue lanes, counted and reported); values
+   within the CPU tests' tolerances on the lanes OK in both;
 3. the main path: ``ignition_delay_sweep`` on grisyn, CONP/ENRG, B lanes,
    T0 evenly over 1000-1400 K, 1 atm, stoichiometric H2/air, t_end 0.05 s,
    rtol 1e-6, atol 1e-12, through K1 and K5, with the launch counters
@@ -25,7 +34,15 @@ Phases, each of which raises on failure (exit code != 0):
    twins on the card within 1e-6 relative;
 3b. the same for CONV/ENRG at 10 atm (a reflected-shock condition);
 4. ``torch.profiler`` over the first 20 attempts of the main-path sweep:
-   device time by kernel and the device's idle share.
+   device time by kernel and the device's idle share;
+5. the steady-state path: the h2o2 PSR stability map (4096 lanes: 8
+   equivalence ratios x 8 inlet temperatures x 64 residence times, 1 atm,
+   SetResTime/ENRG): ``equilibrate(option=5)`` of each inlet through K6
+   for the guess, then ``solve_psr`` through K7, with the launch counters
+   read around each; then the same map through the plain twins on the
+   card, which must give the same status on 99 % of the lanes, and on the
+   lanes OK in both T within 1e-6 relative, Y within 1e-9 and the same
+   Newton counts on 99 %; 80 % of the lanes OK, both branches present.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -726,6 +743,452 @@ def profile_window(tm, B):
                      for k, (ms, n) in top])
 
 
+# -- phase 2c and 5: the steady-state kernels K6 and K7 -----------------------
+
+PSR_P = P_ATM
+PSR_MDOT = 10.0          # g/s, as the reference's PSR tests
+EQ_TOL = dict(T=1e-9, X=1e-11, h=1e-9, s=1e-9, v=1e-9)   # the CPU tests'
+PSR_TOL = dict(T=1e-8, Y=1e-10)                          # the CPU tests'
+MAP_TOL = dict(T=1e-6, Y=1e-9)
+SAME_SHARE = 0.99        # lanes that must agree in status and counts
+
+
+def _h2_air(tm, phi):
+    """H2/air mass fractions [len(phi), KK] at equivalence ratios phi."""
+    import numpy as np
+    names = [s.upper() for s in tm.record.species_names]
+    wt = np.asarray(tm.record.wt)
+    X = np.zeros((len(phi), len(names)))
+    X[:, names.index("H2")] = 2.0 * np.asarray(phi)
+    X[:, names.index("O2")] = 1.0
+    X[:, names.index("N2")] = 3.76
+    Y = X * wt
+    return Y / Y.sum(1, keepdims=True)
+
+
+def _eq_states(tm, B, seed):
+    """(T, P, Y) of B equilibrium lanes: T 300-1500 K, H2/air at phi
+    0.5-2, 1-10 atm."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=tm.device)
+    T = rng.uniform(300.0, 1500.0, B)
+    P = rng.uniform(1.0, 10.0, B) * P_ATM
+    Y = _h2_air(tm, rng.uniform(0.5, 2.0, B))
+    return (torch.tensor(T, **f64), torch.tensor(P, **f64),
+            torch.tensor(Y, **f64))
+
+
+def _equil_flops(tm, option, n_iter=80):
+    """FP64 operations of one lane of K6 for ``option``, counted from the
+    iterations the solve makes (the same on every lane): per Newton
+    iteration the species loop, the (MM + 4)(n + 1) sums over the
+    species, the two constraint rows, the row equilibration, the LU and
+    the solve with its residual check; per solve the least-squares start
+    and the final evaluation."""
+    from pychemkin_tpu_torch.ops import equilibrium
+    t = TRANSCENDENTAL
+    KK, MM = tm.KK, tm.MM
+    n = MM + 3
+    species = KK * (40 + 2 * MM + 3 * t)        # NASA-7, ln x, clip, x, S
+    it = (species + (MM + 4) * (n + 1) * KK * 6 + 20 * n + 3 * n * n
+          + 2.0 * n ** 3 / 3 + 4 * n * n + 10 * n + 2 * t)
+    final = species + (MM + 4) * KK * 3 + 4 * KK
+    init = KK * (30 + 2 * t) + 2 * MM * (MM + 1) * KK + 2.0 * MM ** 3 / 3
+
+    def solve(n_main, n_pre, pair_TP):
+        return init + (n_main + (0 if pair_TP else n_pre)) * it + final
+
+    con1, con2 = equilibrium.EQ_OPTIONS[option]
+    start = KK * (60 + 2 * t)                  # targets of the initial state
+    if not equilibrium.is_nested(option):
+        return float(start + solve(n_iter, 50, (con1, con2) == ("T", "P")))
+    inner = solve(30, 30, con1 == "P")
+    final_solve = solve(40, 30, con1 == "P")
+    return float(start + 20 * (inner + 2 * KK + 10) + final_solve + 2 * KK)
+
+
+def _eq_bytes(tm):
+    """Bytes one lane of K6 moves: T, P, Y in; the result fields out."""
+    KK = tm.KK
+    return (2 + KK) * 8 + (8 + 2 * KK) * 8 + 1 + 4
+
+
+def _compare_eq(tag, k, q):
+    """K6 result ``k`` against its twin's ``q``: the same status on
+    SAME_SHARE of the lanes the twin solves; on the lanes OK in both, T
+    and v within EQ_TOL relative, X absolute, and h and s relative to
+    max(|value|, its thermal scale nbar R T or nbar R): an enthalpy near
+    zero is a difference of species terms 1e7 times larger, so plain
+    relative error there measures cancellation, not the solve. Returns
+    (errors, lanes the twin solves, lanes with equal status)."""
+    import torch
+    from pychemkin_tpu_torch.constants import R_GAS
+    B = q.T.shape[0]
+    ok_t = q.status == 0
+    bad = ok_t & (k.status != q.status)
+    n_bad = int(bad.sum())
+    for i in bad.nonzero()[:, 0][:5].tolist():
+        print(f"  {tag}: lane {i}: kernel status {int(k.status[i])} residual "
+              f"{float(k.residual[i]):.3e}, twin residual "
+              f"{float(q.residual[i]):.3e}, T {float(q.T[i]):.2f}",
+              flush=True)
+    assert n_bad <= (1.0 - SAME_SHARE) * B, \
+        f"{tag}: status differs on {n_bad} lanes the twin solves"
+    ok = ok_t & (k.status == 0)
+    err = dict(T=0.0, X=0.0, h=0.0, s=0.0, v=0.0)
+    if bool(ok.any()):
+        def rel(f, scale=None):
+            a, b = getattr(k, f)[ok], getattr(q, f)[ok]
+            den = b.abs() if scale is None else torch.maximum(b.abs(),
+                                                              scale[ok])
+            return float(((a - b).abs() / den.clamp_min(1e-300)).max())
+        err = dict(T=rel("T"), v=rel("v"), h=rel("h", q.nbar * R_GAS * q.T),
+                   s=rel("s", q.nbar * R_GAS),
+                   X=float((k.X - q.X).abs()[ok].max()))
+    for f, tol in EQ_TOL.items():
+        assert err[f] <= tol, f"{tag}: {f} error {err[f]:.3e} > {tol}"
+    return err, int(ok_t.sum()), int((k.status == q.status).sum())
+
+
+def check_equilibrium(tm_g, tm_h, B_g, reps):
+    """Phase 2c, K6: ``kernels.equil_solve`` against
+    ``equilibrium.equilibrate_plain`` on the card, grisyn B_g lanes for
+    options 1 and 5, h2o2 256 lanes for all nine options. Returns the
+    statistics of every case."""
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import equilibrium
+    cases = []
+    for tm, B, options in ((tm_g, B_g, (1, 5)), (tm_h, 256, range(1, 10))):
+        T, P, Y = _eq_states(tm, B, 3)
+        for opt in options:
+            tag = f"K6 {len(tm.record.species_names)} species option {opt}"
+            k = _launched("equil_solve",
+                          lambda: kernels.equil_solve(tm, T, P, Y, opt, 80))
+            t1 = time.perf_counter()
+            q = equilibrium.equilibrate_plain(tm, T, P, Y, opt)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t1) * 1e3
+            err, n_ok, n_same = _compare_eq(tag, k, q)
+            ms = _time_ms(lambda: kernels.equil_solve(tm, T, P, Y, opt, 80),
+                          reps)
+            bms, by = _bound_ms(B * _eq_bytes(tm),
+                                B * _equil_flops(tm, opt))
+            print(f"{tag}, B={B}: {ms:.3f} ms (twin {pms:.1f} ms, bound "
+                  f"{bms:.4f} ms by {by}); twin OK on {n_ok}/{B}, status "
+                  f"equal on {n_same}/{B}; errors "
+                  f"{ {f: f'{v:.2e}' for f, v in err.items()} }", flush=True)
+            cases.append(dict(mech=tm.KK, option=opt, B=B, ms=ms,
+                              plain_ms=pms, bound_ms=bms, bound_by=by,
+                              ok_lanes=n_ok, same_status=n_same, err=err))
+    return cases
+
+
+def _psr_work(tm, sol, n_pseudo=100):
+    """(bytes, FP64 operations) of K7 over the lanes of ``sol``, counted
+    from the iterations each lane made: per Newton iteration one K2 body,
+    the flow shell, the pivoted bordered factor, one solve and the
+    full-matrix residual check; per pseudo-transient step (on the lanes
+    whose polish count is > 0) one K2 body, the factor and 6 x (K1 body +
+    solve); per lane the finish (one K1 body)."""
+    KK, N = tm.KK, tm.N
+    n = KK
+    k1 = _rate_flops(tm, False)
+    k2 = _rate_flops(tm, True)
+    shell = 12 * KK + 10 * N * N
+    factor = 2.0 * n ** 3 / 3 + 2.0 * n * n + 4 * n + 2 * N * N
+    solve = 2.0 * n * n + 4 * n
+    newton = k2 + shell + factor + solve + 2 * N * N + 12 * N
+    pt_step = k2 + shell + N * N + factor + 6 * (k1 + 4 * KK + solve + 6 * N)
+    its = int((sol.n_newton_direct + sol.n_newton_polish).sum())
+    pt_lanes = int((sol.n_newton_polish > 0).sum())
+    B = sol.T.shape[0]
+    flops = its * newton + pt_lanes * n_pseudo * pt_step + B * (k1 + 4 * KK)
+    nbytes = B * ((2 * KK + 9) * 8 + (KK + 5) * 8 + 1 + 3 * 8 + 4) \
+        + _mech_bytes(tm)
+    return nbytes, float(flops)
+
+
+def _psr_lanes(tm, B, seed, energy, cold=False):
+    """(args, y0) of B PSR lanes on the card: H2/air at phi 0.5-2, inlets
+    at 298-900 K, tau 1e-6-1 s, volumes 1e-2-1e4 cm^3 at 10 g/s (for "vol"
+    mode); ``cold``: stoichiometric H2/air with inlets at 298.15 and 700 K,
+    each over B/2 residence times geometric over 1e-4-1 s. The guess is the
+    inlet's HP equilibrium from the twin (ENRG) or the inlet at T_fixed,
+    800-2000 K (TGIV)."""
+    import numpy as np
+    import torch
+    from pychemkin_tpu_torch.ops import equilibrium, psr, thermo
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=tm.device)
+    if cold:
+        T_in = np.repeat([298.15, 700.0], B // 2)
+        tau = np.tile(np.geomspace(1e-4, 1.0, B // 2), 2)
+        phi = np.ones(B)
+    else:
+        T_in = rng.uniform(298.15, 900.0, B)
+        tau = 10 ** rng.uniform(-6.0, 0.0, B)
+        phi = rng.uniform(0.5, 2.0, B)
+    Y_in = torch.tensor(_h2_air(tm, phi), **f64)
+    T_in = torch.tensor(T_in, **f64)
+    Pv = torch.full((B,), PSR_P, **f64)
+    T_fixed = torch.tensor(rng.uniform(800.0, 2000.0, B), **f64)
+    args = psr.PSRArgs(
+        P=Pv, Y_in=Y_in, h_in=thermo.mixture_enthalpy_mass(tm, T_in, Y_in),
+        tau=torch.tensor(tau, **f64),
+        volume=torch.tensor(10 ** rng.uniform(-2.0, 4.0, B), **f64),
+        mdot=torch.full((B,), PSR_MDOT, **f64), qloss=torch.zeros(B, **f64),
+        T_fixed=T_fixed)
+    if energy == "TGIV":
+        y0 = torch.cat([Y_in, T_fixed[:, None]], 1)
+    else:
+        g = equilibrium.equilibrate_plain(tm, T_in, Pv, Y_in, 5)
+        y0 = torch.cat([g.Y, g.T[:, None]], 1)
+    return args, y0.contiguous()
+
+
+def _perturbed(y0, seed):
+    """The guess with every entry moved by +-1e-15 relative (a random sign
+    per entry): a rerun of the twin from it shows which lanes' outcome
+    depends on rounding."""
+    import numpy as np
+    import torch
+    sign = np.random.default_rng(seed).choice([-1.0, 1.0], tuple(y0.shape))
+    return (y0 * (1.0 + 1e-15 * torch.tensor(sign, dtype=y0.dtype,
+                                             device=y0.device))).contiguous()
+
+
+def _compare_psr(tag, k, q, rerun, tol, overall=False):
+    """K7 result ``k`` against its twin's ``q``. Where they differ in
+    status or Newton counts, ``rerun(lanes)`` runs the twin again on those
+    lanes from the guess moved by 1e-15 (``_perturbed``): a lane whose twin
+    outcome moves too is rounding-chaotic (a pseudo-transient trajectory
+    that swings between the T clamps), and any two roundings, the kernel's
+    and the twin's among them, may end it apart. Checks: the same status
+    and counts as the twin on SAME_SHARE of the other (stable) lanes
+    (``overall``: of all lanes); on the lanes OK in both with equal
+    counts, T and Y within ``tol``. Returns statistics."""
+    import torch
+    B = q.T.shape[0]
+
+    def same(a, b):
+        return ((a.status == b.status) & (a.n_newton_direct == b.n_newton_direct)
+                & (a.n_newton_polish == b.n_newton_polish))
+    agree = same(k, q)
+    apart = (~agree).nonzero()[:, 0]
+    stable = torch.ones_like(agree)
+    if apart.numel():
+        stable[apart] = same(type(q)(*[x[apart] for x in q]), rerun(apart))
+    for i in apart[:8].tolist():
+        print(f"  {tag}: lane {i}{'' if bool(stable[i]) else ' (chaotic)'}: "
+              f"kernel status {int(k.status[i])} counts "
+              f"{int(k.n_newton_direct[i])}+{int(k.n_newton_polish[i])} T "
+              f"{float(k.T[i]):.2f}; twin status {int(q.status[i])} counts "
+              f"{int(q.n_newton_direct[i])}+{int(q.n_newton_polish[i])} T "
+              f"{float(q.T[i]):.2f}", flush=True)
+    n_stable = int(stable.sum())
+    n_agree_stable = int((agree & stable).sum())
+    assert n_agree_stable >= SAME_SHARE * n_stable, \
+        f"{tag}: kernel = twin on {n_agree_stable}/{n_stable} stable lanes"
+    n_st = int((k.status == q.status).sum())
+    if overall:
+        assert n_st >= SAME_SHARE * B, f"{tag}: status equal on {n_st}/{B}"
+        assert int(agree.sum()) >= SAME_SHARE * B, \
+            f"{tag}: Newton counts equal on {int(agree.sum())}/{B}"
+    both = (k.status == 0) & (q.status == 0) & agree
+    eT = float(((k.T - q.T).abs() / q.T.abs())[both].max()) \
+        if bool(both.any()) else 0.0
+    eY = float((k.Y - q.Y).abs()[both].max()) if bool(both.any()) else 0.0
+    assert eT <= tol["T"] and eY <= tol["Y"], \
+        f"{tag}: T {eT:.3e} / Y {eY:.3e} beyond {tol}"
+    return dict(B=B, same_status=n_st, same_status_and_counts=int(agree.sum()),
+                stable=n_stable, agree_on_stable=n_agree_stable,
+                chaotic=B - n_stable, ok_both=int(both.sum()),
+                ok_kernel=int((k.status == 0).sum()),
+                ok_twin=int((q.status == 0).sum()), err_T=eT, err_Y=eY)
+
+
+def _rerun(tm, mode, energy, args, y0, ctl, seed):
+    """``rerun(lanes)`` of ``_compare_psr``: the twin on those lanes from
+    the guess moved by 1e-15."""
+    from pychemkin_tpu_torch.ops import psr
+
+    def run(lanes):
+        sub = type(args)(*[a[lanes].contiguous() for a in args])
+        return psr.solve_psr_plain(tm, mode, energy, sub,
+                                   _perturbed(y0[lanes], seed), ctl)
+    return run
+
+
+def check_psr(tm_g, tm_h):
+    """Phase 2c, K7: ``kernels.psr_solve`` against ``psr.solve_psr_plain``
+    on the card: grisyn 256 lanes from cold inlets (tau/ENRG), h2o2 256
+    lanes for each of tau/vol x ENRG/TGIV. Returns the statistics."""
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import psr
+    ctl = psr.PSRControls()
+    cases = []
+    for tm, mode, energy in ((tm_g, "tau", "ENRG"), (tm_h, "tau", "ENRG"),
+                             (tm_h, "vol", "ENRG"), (tm_h, "tau", "TGIV"),
+                             (tm_h, "vol", "TGIV")):
+        cold = tm is tm_g
+        args, y0 = _psr_lanes(tm, 256, 5, energy, cold=cold)
+        tag = f"K7 {tm.KK} species {mode}/{energy}"
+        t0 = time.perf_counter()
+        k = _launched("psr_solve", lambda: kernels.psr_solve(
+            tm, mode, energy, args, y0, ctl))
+        ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        q = psr.solve_psr_plain(tm, mode, energy, args, y0, ctl)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t1) * 1e3
+        st = _compare_psr(tag, k, q, _rerun(tm, mode, energy, args, y0, ctl,
+                                            7), PSR_TOL)
+        nbytes, flops = _psr_work(tm, k)
+        bms, by = _bound_ms(nbytes, flops)
+        pt = int((k.n_newton_polish > 0).sum())
+        print(f"{tag}, B=256: {ms:.2f} ms (twin {pms:.0f} ms, bound "
+              f"{bms:.4f} ms by {by}); {st}; pseudo-transient lanes {pt}",
+              flush=True)
+        if cold:
+            assert st["ok_twin"] >= 0.9 * 256 and pt > 0, \
+                f"{tag}: the grisyn check needs converging lanes and " \
+                f"pseudo-transient lanes: {st}, {pt}"
+        cases.append(dict(mech=tm.KK, mode=mode, energy=energy, ms=ms,
+                          plain_ms=pms, bound_ms=bms, bound_by=by,
+                          pt_lanes=pt, **st))
+    return cases
+
+
+def _map_lanes(tm):
+    """The h2o2 PSR stability map: 8 phi (geometric 0.5-2) x 8 inlet
+    temperatures (298.15-900 K) x 64 residence times (geometric
+    1e-6-1 s), 4096 lanes, 1 atm."""
+    import numpy as np
+    import torch
+    f64 = dict(dtype=torch.float64, device=tm.device)
+    phi = np.geomspace(0.5, 2.0, 8)
+    T_in = np.linspace(298.15, 900.0, 8)
+    tau = np.geomspace(1e-6, 1.0, 64)
+    P_, T_, t_ = np.meshgrid(phi, T_in, tau, indexing="ij")
+    return (torch.tensor(_h2_air(tm, P_.ravel()), **f64),
+            torch.tensor(T_.ravel(), **f64), torch.tensor(t_.ravel(), **f64))
+
+
+def psr_map_phase(tm, reps):
+    """Phase 5: the h2o2 PSR stability map through K6 (the guess) and K7,
+    the launch counters set to 0 just before and read just after each
+    step; then through the twins on the card. Returns (launches, summary,
+    kernel rows' timings)."""
+    import numpy as np
+    import torch
+    import pychemkin_tpu_torch as ptt
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import equilibrium, psr, thermo
+    from pychemkin_tpu_torch.resilience.status import SolveStatus
+    Y_in, T_in, tau = _map_lanes(tm)
+    B = T_in.shape[0]
+    h_in = thermo.mixture_enthalpy_mass(tm, T_in, Y_in)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    g = ptt.equilibrate(tm, T_in, PSR_P, Y_in, option=5, device="cuda")
+    torch.cuda.synchronize()
+    wall_eq = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    sol = ptt.solve_psr(tm, "tau", "ENRG", P=PSR_P, Y_in=Y_in, h_in=h_in,
+                        T_guess=g.T, Y_guess=g.Y, tau=tau, mdot=PSR_MDOT,
+                        device="cuda")
+    torch.cuda.synchronize()
+    wall_psr = time.perf_counter() - t1
+    for k, v in kernels.LAUNCHES.items():
+        launches[k] += v
+    assert launches["equil_solve"] > 0 and launches["psr_solve"] > 0, launches
+    st = sol.status.cpu().numpy()
+    counts = {SolveStatus(int(c)).name: int(n)
+              for c, n in zip(*np.unique(st, return_counts=True))}
+    T = sol.T.cpu().numpy()
+    pt = int((sol.n_newton_polish > 0).sum())
+    summary = dict(
+        B=B, wall_equilibrium_s=wall_eq, wall_psr_s=wall_psr,
+        psr_solves_per_s=B / wall_psr, status=counts,
+        n_newton_direct=int(sol.n_newton_direct.sum()),
+        n_newton_polish=int(sol.n_newton_polish.sum()),
+        pseudo_transient_lanes=pt, T_min=float(T.min()), T_max=float(T.max()),
+        guess_status={SolveStatus(int(c)).name: int(n) for c, n in zip(
+            *np.unique(g.status.cpu().numpy(), return_counts=True))},
+        launches={k: v for k, v in launches.items() if v})
+    print(f"PSR map h2o2 B={B}: equilibrium {wall_eq:.3f} s, PSR "
+          f"{wall_psr:.3f} s, {B / wall_psr:.1f} PSR solves/s; status "
+          f"{counts}; Newton direct {summary['n_newton_direct']}, polish "
+          f"{summary['n_newton_polish']}; pseudo-transient lanes {pt}; exit "
+          f"T {T.min():.2f}-{T.max():.2f} K; launches {summary['launches']}",
+          flush=True)
+    n_ok = counts.get("OK", 0)
+    assert n_ok >= 0.8 * B, f"only {n_ok}/{B} lanes OK"
+    ok = st == 0
+    cold = np.abs(T - T_in.cpu().numpy()) < 1.0
+    assert (ok & cold).any() and (ok & (T > 2000.0)).any(), \
+        "the map lacks the cold or the burning branch"
+
+    # the same map through the twins on the card
+    t2 = time.perf_counter()
+    gq = equilibrium.equilibrate_plain(tm, T_in, torch.full_like(T_in, PSR_P),
+                                       Y_in, 5)
+    torch.cuda.synchronize()
+    eq_pms = (time.perf_counter() - t2) * 1e3
+    eq_err, _, _ = _compare_eq("K6 map guess", g, gq)
+    args = psr.PSRArgs(P=torch.full_like(T_in, PSR_P), Y_in=Y_in, h_in=h_in,
+                       tau=tau, volume=torch.zeros_like(T_in),
+                       mdot=torch.full_like(T_in, PSR_MDOT),
+                       qloss=torch.zeros_like(T_in),
+                       T_fixed=torch.zeros_like(T_in))
+    y0 = torch.cat([gq.Y, gq.T[:, None]], 1).contiguous()
+    t3 = time.perf_counter()
+    q = psr.solve_psr_plain(tm, "tau", "ENRG", args, y0, psr.PSRControls())
+    torch.cuda.synchronize()
+    psr_pms = (time.perf_counter() - t3) * 1e3
+    cmp = _compare_psr("K7 map", sol, q,
+                       _rerun(tm, "tau", "ENRG", args, y0, psr.PSRControls(),
+                              8), MAP_TOL, overall=True)
+    print(f"  map vs twins: {cmp}; equilibrium guess errors "
+          f"{ {f: f'{v:.2e}' for f, v in eq_err.items()} }; twin walls "
+          f"{eq_pms:.0f} / {psr_pms:.0f} ms", flush=True)
+    summary.update(vs_twin=cmp, guess_err=eq_err)
+
+    # per-launch times at the map's shapes
+    Pv = torch.full_like(T_in, PSR_P)
+    eq_ms = _time_ms(lambda: kernels.equil_solve(tm, T_in, Pv, Y_in, 5, 80),
+                     reps)
+    ctl = psr.PSRControls()
+    psr_ms = _time_ms(lambda: kernels.psr_solve(tm, "tau", "ENRG", args, y0,
+                                                ctl), max(reps // 4, 1))
+    eq_b, eq_f = B * _eq_bytes(tm), B * _equil_flops(tm, 5)
+    ps_b, ps_f = _psr_work(tm, sol)
+    rows = [
+        _row("equil_solve", "equilibrium.cu",
+             "ops/equilibrium.py:150 (_solve; :258 equilibrate)",
+             max_abs_err=float((g.T - gq.T).abs().max()),
+             scale_rel_err=eq_err["T"], ms=eq_ms, plain_ms=eq_pms,
+             **dict(zip(("bound_ms", "bound_by"), _bound_ms(eq_b, eq_f))),
+             library_ms=None, batch=B, option=5),
+        _row("psr_solve", "psr_solve.cu",
+             "ops/psr.py:273 (solve_psr; :148, :225)",
+             max_abs_err=float((sol.T - q.T).abs()[(sol.status == 0)
+                                                   & (q.status == 0)].max()),
+             scale_rel_err=cmp["err_T"], ms=psr_ms, plain_ms=psr_pms,
+             **dict(zip(("bound_ms", "bound_by"), _bound_ms(ps_b, ps_f))),
+             library_ms=None, batch=B)]
+    for row in rows:
+        _print_row(row)
+    return launches, summary, rows
+
+
 def _build_report():
     """Registers, spills and stack of every kernel, from ptxas -v."""
     import re
@@ -758,7 +1221,8 @@ _HOME = {"rhs": ("CONP", "k5"), "rhs_conv": ("CONV", "k5"),
          "rhs_jac": ("CONP", "host_loop"),
          "rhs_jac_conv": ("CONV", "host_loop"),
          "bordered_factor": ("CONP", "host_loop"),
-         "bordered_solve": ("CONP", "host_loop")}
+         "bordered_solve": ("CONP", "host_loop"),
+         "equil_solve": ("PSR", "map"), "psr_solve": ("PSR", "map")}
 
 
 def main(argv=None):
@@ -790,7 +1254,12 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     tm = TorchMechanism(load_embedded("grisyn"), "cuda")
+    tm_h = TorchMechanism(load_embedded("h2o2"), "cuda")
     rows = check_kernels(tm, args.batch, args.reps)
+    with torch.inference_mode():
+        steady = dict(equilibrium=check_equilibrium(tm, tm_h, args.batch,
+                                                    max(args.reps // 4, 2)),
+                      psr=check_psr(tm, tm_h))
     for problem, P0 in SWEEPS:
         row = check_k5(tm, problem, P0, args.t_end, max(args.reps // 4, 2))
         row["ptxas"] = next((v for k, v in ptxas.items()
@@ -807,6 +1276,16 @@ def main(argv=None):
     print(json.dumps({"profile": prof if prof is not None else
                       "not measured: no device time in the trace"}),
           flush=True)
+    with torch.inference_mode():
+        map_launches, map_summary, map_rows = psr_map_phase(
+            tm_h, max(args.reps // 4, 2))
+    launches["PSR"] = {"map": map_launches}
+    for row in map_rows:
+        row["ptxas"] = next((v for k, v in ptxas.items()
+                             if {"equil_solve": "equil_kernel",
+                                 "psr_solve": "psr_kernel"}[row["name"]] in k),
+                            None)
+    rows.extend(map_rows)
     for row in rows:
         problem, path = _HOME[row["name"]]
         row["launches"] = launches[problem][path][row["name"]]
@@ -814,7 +1293,8 @@ def main(argv=None):
                                    for p in launches for q in launches[p]}
         assert row["launches"] > 0, f"{row['name']} not launched on its path"
     smi = _nvidia_smi()
-    print(json.dumps({"sweeps": summaries, "card": smi}), flush=True)
+    print(json.dumps({"sweeps": summaries, "psr_map": map_summary,
+                      "steady_checks": steady, "card": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

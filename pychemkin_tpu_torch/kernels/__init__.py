@@ -7,7 +7,11 @@
   elimination of the T border);
 - :func:`bordered_solve` (K4, ``csrc/bordered_solve.cu``): x = M^-1 r;
 - :func:`sdirk_round` (K5, ``csrc/sdirk_round.cu``): up to R SDIRK3 step
-  attempts per lane in one launch, built from the lane bodies of K1-K4.
+  attempts per lane in one launch, built from the lane bodies of K1-K4;
+- :func:`equil_solve` (K6, ``csrc/equilibrium.cu``): a whole chemical
+  equilibrium per lane (one warp), all iterations in one launch;
+- :func:`psr_solve` (K7, ``csrc/psr_solve.cu``): a whole PSR steady-state
+  solve per lane (one block), Newton, pseudo-transient rescue and polish.
 
 K1, K2 and K5 take the reactor's ``problem``: "CONP" (the lane's
 constraint value is its pressure) or "CONV" (its density); each problem
@@ -35,10 +39,16 @@ from . import build
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"rhs": 0, "rhs_conv": 0, "rhs_jac": 0, "rhs_jac_conv": 0,
             "bordered_factor": 0, "bordered_solve": 0, "sdirk_round": 0,
-            "sdirk_round_conv": 0}
+            "sdirk_round_conv": 0, "equil_solve": 0, "psr_solve": 0}
 
 #: kernel code of each problem (the template parameter PROB of chem.cuh)
 PROBLEMS = {"CONP": 0, "CONV": 1}
+
+#: K6's limits: n = MM + 3 unknowns, KK <= 32 * EQ_MAX_SPT species
+EQ_MAX_N = 12
+EQ_MAX_SPT = 4
+#: K7's solve keeps up to SOLVE_MAXR_PSR species a thread of warp 0
+SOLVE_MAXR_PSR = 4
 
 
 def reset_launches() -> None:
@@ -53,7 +63,7 @@ _PTR_FIELDS = (
     "rev_hasp", "rev_A", "rev_beta", "rev_Ea_R", "kc_ptr", "kc_sp",
     "kc_coef", "of_ptr", "of_sp", "of_coef", "or_ptr", "or_sp", "or_coef",
     "nus_ptr", "nus_rxn", "nus_coef", "jac_ptr", "jac_rxn", "jac_cf",
-    "jac_cr", "tbs_ptr", "tbs_row", "tbs_nu")
+    "jac_cr", "tbs_ptr", "tbs_row", "tbs_nu", "ncf")
 
 
 class MechView(ctypes.Structure):
@@ -61,7 +71,7 @@ class MechView(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_FIELDS]
                 + [("r_gas", ctypes.c_double), ("p_atm", ctypes.c_double)]
                 + [(n, ctypes.c_int) for n in ("KK", "II", "n_fo", "n_tb",
-                                               "n_rev", "pad")])
+                                               "n_rev", "MM")])
 
 
 def mech_view(tm) -> MechView:
@@ -78,7 +88,7 @@ def mech_view(tm) -> MechView:
         ptrs[n] = t.data_ptr() if t.numel() else None
     view = MechView(**ptrs, r_gas=R_GAS, p_atm=P_ATM, KK=tm.KK, II=tm.II,
                     n_fo=tm.fo_rows.numel(), n_tb=tm.tb_rows.numel(),
-                    n_rev=tm.rev_rows.numel(), pad=0)
+                    n_rev=tm.rev_rows.numel(), MM=tm.MM)
     tm._kernel_view = view
     return view
 
@@ -93,6 +103,31 @@ class SdirkArgs(ctypes.Structure):
                 + [("rtol", ctypes.c_double), ("budget", ctypes.c_longlong),
                    ("max_attempts", ctypes.c_int),
                    ("event_mode", ctypes.c_int)])
+
+
+class EquilArgs(ctypes.Structure):
+    """Mirror of ``EquilArgs`` (csrc/equilibrium.cu): the lanes' initial
+    states, the result fields of ``ops.equilibrium.EquilibriumResult``,
+    then the option and the main iteration count."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "T", "P", "Y", "T_out", "P_out", "X", "Y_out", "nbar", "h", "u", "s",
+        "v", "residual", "converged", "status")]
+                + [("option", ctypes.c_int), ("n_iter", ctypes.c_int)])
+
+
+class PsrArgs(ctypes.Structure):
+    """Mirror of ``PsrArgs`` (csrc/psr_solve.cu): the lanes of
+    ``ops.psr.PSRArgs`` and the guess, the ``PSRSolution`` fields, then the
+    controls of ``ops.psr.PSRControls``, the mode and the energy."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "P", "Y_in", "h_in", "tau", "volume", "mdot", "qloss", "T_fixed",
+        "y0", "T", "Y", "rho", "tau_out", "volume_out", "residual",
+        "converged", "n_newton", "n_direct", "n_polish", "status")]
+                + [(n, ctypes.c_double) for n in (
+                    "ss_atol", "ss_rtol", "dt0", "up", "down", "dt_min",
+                    "dt_max", "T_max", "species_floor")]
+                + [(n, ctypes.c_int) for n in (
+                    "n_newton_max", "n_pseudo", "mode", "energy")])
 
 
 def _check(name, t, shape, dtype=torch.float64):
@@ -284,5 +319,113 @@ def sdirk_round(tm, lanes, state, *, rtol, budget, max_attempts,
     return state
 
 
+def equil_solve(tm, T, P, Y, option, n_iter):
+    """K6: the equilibrium of every lane from its initial state ``T``,
+    ``P`` [B] and ``Y`` [B, KK] holding the pair of ``option`` (1-9), with
+    ``n_iter`` main iterations: an
+    :class:`~..ops.equilibrium.EquilibriumResult`. One warp per lane runs
+    the whole solve (start, pre-phase, main iterations, the nested ln T
+    loop of options 6 and 9, the finish); the CPU twin is
+    :func:`..ops.equilibrium.equilibrate_plain`."""
+    from ..ops import equilibrium
+    if int(option) not in equilibrium.EQ_OPTIONS:
+        raise ValueError(f"option must be one of 1-9, got {option!r}")
+    if int(n_iter) < 0:
+        raise ValueError(f"n_iter must be >= 0, got {n_iter!r}")
+    B = T.shape[0]
+    _check("T", T, (B,))
+    _check("P", P, (B,))
+    _check("Y", Y, (B, tm.KK))
+    if not _route(T, P, Y):
+        return equilibrium.equilibrate_plain(tm, T, P, Y, int(option),
+                                             int(n_iter))
+    _check_mech(tm, Y)
+    if tm.MM + 3 > EQ_MAX_N or tm.KK > 32 * EQ_MAX_SPT:
+        raise ValueError(f"equil_solve takes MM <= {EQ_MAX_N - 3} and KK <= "
+                         f"{32 * EQ_MAX_SPT}, got {tm.MM}, {tm.KK}")
+    f64 = dict(dtype=torch.float64, device=Y.device)
+    out = {n: torch.empty(B, **f64) for n in (
+        "T", "P", "nbar", "h", "u", "s", "v", "residual")}
+    X = torch.empty(B, tm.KK, **f64)
+    Yo = torch.empty(B, tm.KK, **f64)
+    conv = torch.empty(B, dtype=torch.bool, device=Y.device)
+    status = torch.empty(B, dtype=torch.int32, device=Y.device)
+    args = EquilArgs(T=T.data_ptr(), P=P.data_ptr(), Y=Y.data_ptr(),
+                     T_out=out["T"].data_ptr(), P_out=out["P"].data_ptr(),
+                     X=X.data_ptr(), Y_out=Yo.data_ptr(),
+                     **{n: out[n].data_ptr() for n in (
+                         "nbar", "h", "u", "s", "v", "residual")},
+                     converged=conv.data_ptr(), status=status.data_ptr(),
+                     option=int(option), n_iter=int(n_iter))
+    _raise_on(build.library().chem_equil_solve(
+        ctypes.byref(mech_view(tm)), ctypes.byref(args), B,
+        _stream(Y.device)), "equil_solve")
+    LAUNCHES["equil_solve"] += 1
+    return equilibrium.EquilibriumResult(
+        T=out["T"], P=out["P"], X=X, Y=Yo, nbar=out["nbar"], h=out["h"],
+        u=out["u"], s=out["s"], v=out["v"], residual=out["residual"],
+        converged=conv, status=status)
+
+
+def psr_solve(tm, mode, energy, args, y0, ctl):
+    """K7: the whole PSR solve of every lane, ``args`` an
+    :class:`~..ops.psr.PSRArgs` of [B] lanes, ``y0`` [B, N] the guess,
+    ``ctl`` the :class:`~..ops.psr.PSRControls`: a
+    :class:`~..ops.psr.PSRSolution`. One thread block per lane runs the
+    direct Newton, and on a lane it leaves unconverged the
+    pseudo-transient phase and the polish, then the finish; the CPU twin
+    is :func:`..ops.psr.solve_psr_plain`."""
+    from ..ops import psr
+    if mode not in psr.MODES or energy not in psr.ENERGIES:
+        raise ValueError(f"mode must be one of {psr.MODES} and energy one "
+                         f"of {psr.ENERGIES}, got {mode!r}, {energy!r}")
+    B, N = y0.shape
+    if N != tm.N:
+        raise ValueError(f"y0: expected {tm.N} columns, got {N}")
+    _check("y0", y0, (B, N))
+    for name in psr.PSRArgs._fields:
+        _check(name, getattr(args, name),
+               (B, tm.KK) if name == "Y_in" else (B,))
+    if int(ctl.n_newton) < 1 or int(ctl.n_pseudo) < 0:
+        raise ValueError("n_newton must be >= 1 and n_pseudo >= 0")
+    if not _route(y0, *args):
+        return psr.solve_psr_plain(tm, mode, energy, args, y0, ctl)
+    _check_mech(tm, y0)
+    if tm.KK > 32 * SOLVE_MAXR_PSR:
+        raise ValueError(f"psr_solve takes KK <= {32 * SOLVE_MAXR_PSR}")
+    dev = y0.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = {n: torch.empty(B, **f64) for n in (
+        "T", "rho", "tau_out", "volume_out", "residual")}
+    Y = torch.empty(B, tm.KK, **f64)
+    conv = torch.empty(B, dtype=torch.bool, device=dev)
+    counts = {n: torch.empty(B, dtype=torch.int64, device=dev)
+              for n in ("n_newton", "n_direct", "n_polish")}
+    status = torch.empty(B, dtype=torch.int32, device=dev)
+    a = PsrArgs(**{n: getattr(args, n).data_ptr() for n in psr.PSRArgs._fields},
+                y0=y0.data_ptr(), Y=Y.data_ptr(),
+                **{n: t.data_ptr() for n, t in out.items()},
+                converged=conv.data_ptr(),
+                **{n: t.data_ptr() for n, t in counts.items()},
+                status=status.data_ptr(),
+                ss_atol=float(ctl.ss_atol), ss_rtol=float(ctl.ss_rtol),
+                dt0=float(ctl.pseudo_dt0), up=float(ctl.pseudo_up),
+                down=float(ctl.pseudo_down), dt_min=float(ctl.pseudo_dt_min),
+                dt_max=float(ctl.pseudo_dt_max), T_max=float(ctl.T_max),
+                species_floor=float(ctl.species_floor),
+                n_newton_max=int(ctl.n_newton), n_pseudo=int(ctl.n_pseudo),
+                mode=psr.MODES.index(mode), energy=psr.ENERGIES.index(energy))
+    _raise_on(build.library().chem_psr_solve(
+        ctypes.byref(mech_view(tm)), ctypes.byref(a), B, _stream(dev)),
+        "psr_solve")
+    LAUNCHES["psr_solve"] += 1
+    return psr.PSRSolution(
+        T=out["T"], Y=Y, rho=out["rho"], tau=out["tau_out"],
+        volume=out["volume_out"], residual=out["residual"], converged=conv,
+        n_newton=counts["n_newton"], n_newton_direct=counts["n_direct"],
+        n_newton_polish=counts["n_polish"], status=status)
+
+
 __all__ = ["LAUNCHES", "PROBLEMS", "bordered_factor", "bordered_solve",
-           "launch_name", "reset_launches", "rhs", "rhs_jac", "sdirk_round"]
+           "equil_solve", "launch_name", "psr_solve", "reset_launches",
+           "rhs", "rhs_jac", "sdirk_round"]

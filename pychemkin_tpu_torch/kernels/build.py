@@ -27,6 +27,13 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]
+#: flags of single sources: the steady-state solvers (K6, K7) run
+#: fixed-iteration Newtons whose path on a fragile lane follows the
+#: rounding, so they are compiled without contracting a * b + c into one
+#: fused multiply-add, which rounds once where the reference and the
+#: plain twins round twice
+FILE_FLAGS = {"equilibrium.cu": ["-fmad=false"],
+              "psr_solve.cu": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -62,6 +69,7 @@ def source_hash() -> str:
         with open(p, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
+    h.update(repr(sorted(FILE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -80,8 +88,9 @@ def build() -> str:
     procs = []
     for src in sources():
         obj = os.path.join(work, os.path.basename(src)[:-3] + ".o")
-        cmd = [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", CSRC, "-c", src,
-               "-o", obj]
+        cmd = [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS,
+               *FILE_FLAGS.get(os.path.basename(src), []), "-I", CSRC, "-c",
+               src, "-o", obj]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -121,8 +130,11 @@ def _bind(lib):
     lib.chem_bordered_factor.argtypes = [P, P, P, P, P, P, I, I, P]
     lib.chem_bordered_solve.argtypes = [P, P, P, P, P, P, I, I, P]
     lib.chem_sdirk_round.argtypes = [P, P, I, I, P]
+    lib.chem_equil_solve.argtypes = [P, P, I, P]
+    lib.chem_psr_solve.argtypes = [P, P, I, P]
     for fn in (lib.chem_rhs, lib.chem_rhs_jac, lib.chem_bordered_factor,
-               lib.chem_bordered_solve, lib.chem_sdirk_round):
+               lib.chem_bordered_solve, lib.chem_sdirk_round,
+               lib.chem_equil_solve, lib.chem_psr_solve):
         fn.restype = ctypes.c_int
     return lib
 

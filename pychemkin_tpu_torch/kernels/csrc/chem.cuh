@@ -76,8 +76,9 @@ struct MechView {
   const double *jac_cf, *jac_cr;
   const int *tbs_ptr, *tbs_row;
   const double *tbs_nu;
+  const double *ncf;  // [KK, MM] element counts (K6)
   double r_gas, p_atm;
-  int KK, II, n_fo, n_tb, n_rev, pad;
+  int KK, II, n_fo, n_tb, n_rev, MM;
 };
 
 // max(a, b) and min(a, b) that keep a NaN of either argument
@@ -306,7 +307,7 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
   double* grt = cpr + KK;
   double* wdot = grt + KK;
   double* dln = wdot + KK;
-  double* dcpr = dln + KK;
+  double* dcpr = dln + KK;   // hrt, cpr, dcpr: LANE_HRT, LANE_CPR, LANE_DCPR
   double* wT = dcpr + KK;
   double* DC = wT + KK;
   double* hD = DC + KK;
@@ -573,6 +574,126 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
     for (int k = tid; k < KK; k += nt) fb[k] = wdot[k] * m.wt[k] / rho;
     if (tid == 0) fb[KK] = dTdt;
   }
+}
+
+// Offsets (in units of KK doubles) of chem_lane's per-species arrays in its
+// scratch, which the PSR flow shell reads after chem_lane returns: h/RT,
+// cp/R and (JAC only) d(cp/R)/dT at the lane's T.
+constexpr int LANE_HRT = 3, LANE_CPR = 4, LANE_DCPR = 8;
+
+// The constants of one PSR lane (ops/psr.py PSRArgs); Yin [KK] must be
+// visible to every thread.
+struct PsrLane {
+  double P, h_in, tau, volume, mdot, qloss, T_fixed;
+  const double* Yin;
+  bool vol, tgiv;   // "vol" mode (else "tau"); TGIV (else ENRG)
+};
+
+// Maximum of v over the block (NaN-keeping); every thread gets the same
+// value.
+__device__ __forceinline__ double block_max(double v, double* red) {
+  for (int o = 16; o > 0; o >>= 1) v = maxp(v, __shfl_down_sync(FULL_MASK, v, o));
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  double s = red[0];
+  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) s = maxp(s, red[i]);
+  return s;
+}
+
+// The PSR flow shell around chem_lane (the plain twin is
+// ops/jacobian.py:psr_rhs_jac), applied after chem_lane<JAC, CONP> at yb
+// (the state with T = T_fixed for TGIV) has left CONP's chemistry f in fb
+// and, with JAC, its J in Jm [N x N] row-major, and after a barrier:
+// adds (Y_in - Y)/tau to the species rows and, for ENRG,
+// (h_in - Y_in . h_k(T))/tau - Qloss/(rho V), over cp, to the T row, with
+// their derivatives (-1/tau on the species diagonal, Y_in . cp_k and
+// d cp/d(Y, T) in the T row, and for "vol" mode the product rule through
+// tau = rho V / mdot and rho(T, Y)); TGIV zeroes the T row and column.
+// ``scaled`` multiplies f by tau and J by the product rule of f tau: the
+// PSR Newton's residual. ``sm`` is chem_lane's scratch, ``red`` [32] and
+// ``fs`` [N] scratch. Returns tau (clamped at 1e-30) in every thread; fb
+// and Jm are complete after the caller's next barrier.
+template <bool JAC>
+__device__ double psr_shell(const MechView& m, const double* yb,
+                            const double* sm, double* fb, double* Jm,
+                            const PsrLane& ps, bool scaled, double* red,
+                            double* fs) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int KK = m.KK, N = KK + 1;
+  const double R = m.r_gas;
+  const double* hrt = sm + LANE_HRT * KK;
+  const double* cpr = sm + LANE_CPR * KK;
+  const double* dcpr = sm + LANE_DCPR * KK;
+  const double T_raw = yb[KK];
+  const double T = maxp(T_raw, T_FLOOR);
+  const double mT = (!ps.tgiv && T_raw > T_FLOOR) ? 1.0 : 0.0;
+  const double RT = R * T;
+  double p_sw = 0.0, p_cp = 0.0, p_yh = 0.0, p_ycp = 0.0, p_dcp = 0.0;
+  for (int k = tid; k < KK; k += nt) {
+    const double Yk = yb[k], w = m.wt[k];
+    p_sw += Yk * (1.0 / w);
+    p_cp += Yk * (cpr[k] * R / w);
+    p_yh += ps.Yin[k] * (hrt[k] * RT / w);
+    if (JAC) {
+      p_ycp += ps.Yin[k] * (cpr[k] * R / w);
+      p_dcp += Yk * (dcpr[k] * R / w);
+    }
+  }
+  const double s_w = block_sum(p_sw, red);
+  const double cp = block_sum(p_cp, red);
+  const double yin_h = block_sum(p_yh, red);
+  const double yin_cp = JAC ? block_sum(p_ycp, red) : 0.0;
+  const double dcp_dT = JAC ? block_sum(p_dcp, red) : 0.0;
+  const double Wbar = 1.0 / maxp(s_w, 1e-30);
+  const double rho = ps.P * Wbar / (R * T);
+  double tau, V;
+  if (ps.vol) {
+    V = ps.volume;
+    tau = rho * V / maxp(ps.mdot, TINY);
+  } else {
+    tau = ps.tau;
+    V = tau * maxp(ps.mdot, TINY) / rho;
+  }
+  const double tau_c = maxp(tau, TINY);
+  const double rhoV = rho * V;
+  const double q = ps.qloss / maxp(rhoV, TINY);
+  const double h_in_term = ps.h_in - yin_h;
+  const double F = h_in_term / tau_c - q;
+  for (int i = tid; i < N; i += nt) {
+    if (i < KK) fs[i] = fb[i] + (ps.Yin[i] - yb[i]) / tau_c;
+    else fs[i] = ps.tgiv ? 0.0 : fb[KK] + F / cp;
+  }
+  __syncthreads();
+  if (JAC) {
+    const double i_s = s_w > 1e-30 ? 1.0 : 0.0;
+    const double i_tau = tau > TINY ? 1.0 : 0.0;
+    const double i_rv = rhoV > TINY ? 1.0 : 0.0;
+    for (int e = tid; e < N * N; e += nt) {
+      const int i = e / N, j = e - i * N;
+      const double dlnrho = j < KK ? -(Wbar * i_s) / m.wt[j] : -mT / T;
+      const double dtau = ps.vol ? (i_tau * tau) * dlnrho : 0.0;
+      double v = Jm[e];
+      if (i < KK) {
+        if (i == j) v -= 1.0 / tau_c;
+        v -= ((ps.Yin[i] - yb[i]) / (tau_c * tau_c)) * dtau;
+      } else if (ps.tgiv) {
+        v = 0.0;
+      } else {
+        double dF = -(h_in_term / (tau_c * tau_c)) * dtau;
+        if (j == KK) dF -= yin_cp * mT / tau_c;
+        if (ps.vol) dF += (q * i_rv) * dlnrho;
+        const double dcp = j < KK ? cpr[j] * R / m.wt[j] : dcp_dT * mT;
+        v += dF / cp - (F / (cp * cp)) * dcp;
+      }
+      if (ps.tgiv && j == KK) v = 0.0;
+      if (scaled) v = tau_c * v + fs[i] * dtau;
+      Jm[e] = v;
+    }
+  }
+  for (int i = tid; i < N; i += nt) fb[i] = scaled ? fs[i] * tau_c : fs[i];
+  return tau_c;
 }
 
 // K1 (JAC false) and K2 (JAC true): one block per lane.

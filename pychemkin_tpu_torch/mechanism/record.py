@@ -225,6 +225,7 @@ class TorchMechanism:
         self._ix = {}
         self.KK = rec.n_species
         self.II = rec.n_reactions
+        self.MM = rec.n_elements
         self.N = self.KK + 1
         f64 = dict(dtype=torch.float64, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -240,6 +241,7 @@ class TorchMechanism:
         nu = np.asarray(rec.nu_r, np.float64) - np.asarray(rec.nu_f,
                                                            np.float64)
         self.wt = F(rec.wt)
+        self.ncf = F(np.asarray(rec.ncf).reshape(self.KK, self.MM))  # [KK, MM]
         self.nasa_lo = F(np.asarray(rec.nasa_coeffs)[:, 0, :])
         self.nasa_hi = F(np.asarray(rec.nasa_coeffs)[:, 1, :])
         self.t_mid = F(np.asarray(rec.nasa_T)[:, 1])

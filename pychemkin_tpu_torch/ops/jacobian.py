@@ -324,3 +324,76 @@ def conv_enrg_rhs_jac(tm, y, rho):
     J = torch.cat([top, bot], dim=1)
     f = torch.cat([dYdt, dTdt[:, None]], dim=1)
     return f, J
+
+
+def psr_rhs_jac(tm, y, args, mode, energy, *, scaled=False):
+    """(f, J) of the transient PSR RHS (``scaled`` False: what the
+    pseudo-transient phase integrates) or of the tau-scaled steady
+    residual f tau (``scaled`` True: what the Newton solves), y [B, N],
+    for ``mode`` "tau"/"vol" x ``energy`` "ENRG"/"TGIV"; ``args`` is an
+    :class:`~.psr.PSRArgs` of [B] lanes.
+
+    The chemistry is CONP's (:func:`conp_enrg_rhs_jac` at the lane's P;
+    for TGIV at T_fixed). The flow shell adds (Y_in - Y)/tau to the
+    species rows and (h_in - Y_in . h_k(T))/tau - Qloss/(rho V), over cp,
+    to the T row, with their derivatives: -1/tau on the species diagonal,
+    d(Y_in . h_k)/dT = Y_in . cp_k and d cp/d(Y, T) in the T row, and for
+    "vol" mode the product rule through tau = rho V / mdot and
+    rho(T, Y). TGIV has a zero T row and column."""
+    from .psr import MODE_TAU, _TINY, tau_volume
+    KK = tm.KK
+    wt = tm.wt
+    tgiv = energy == "TGIV"
+    Y = y[:, :KK]
+    if tgiv:
+        T = args.T_fixed
+        y_eval = torch.cat([Y, T[:, None]], dim=1)
+        mT = torch.zeros_like(T)
+    else:
+        T = torch.clamp(y[:, KK], min=T_FLOOR)
+        y_eval = y
+        mT = (y[:, KK] > T_FLOOR).to(y.dtype)
+    f, J = conp_enrg_rhs_jac(tm, y_eval, args.P)
+    rho = thermo.density(tm, T, args.P, Y)
+    tau, V = tau_volume(args, rho, mode)
+    tau_c = torch.clamp(tau, min=_TINY)
+    # d ln rho / d y [B, N]: rho = P Wbar / (R T)
+    s = (Y / wt).sum(-1)
+    Wbar = 1.0 / torch.clamp(s, min=1e-30)
+    dlnrho = torch.cat([-(Wbar * (s > 1e-30).to(y.dtype))[:, None] / wt,
+                        (-mT / T)[:, None]], dim=1)
+    if mode == MODE_TAU:
+        dtau = torch.zeros_like(dlnrho)
+    else:
+        dtau = ((tau > _TINY).to(y.dtype) * tau)[:, None] * dlnrho
+    dY_flow = args.Y_in - Y
+    f = f.clone()
+    f[:, :KK] += dY_flow / tau_c[:, None]
+    J = J.clone()
+    J[:, :KK, :KK] -= torch.diag_embed((1.0 / tau_c)[:, None].expand(-1, KK))
+    J[:, :KK, :] -= (dY_flow / (tau_c * tau_c)[:, None])[:, :, None] * dtau[:, None, :]
+    if tgiv:
+        f[:, KK] = 0.0
+        J[:, KK, :] = 0.0
+        J[:, :, KK] = 0.0
+    else:
+        nasa = thermo.nasa7(tm, T)
+        h_k = thermo.species_enthalpy_mass(tm, T, nasa)
+        cp_k = nasa[0] * R_GAS / wt
+        cp = (Y * cp_k).sum(-1)
+        h_in_term = args.h_in - (args.Y_in * h_k).sum(-1)
+        rhoV = rho * V
+        q = args.qloss / torch.clamp(rhoV, min=_TINY)
+        F = h_in_term / tau_c - q
+        f[:, KK] += F / cp
+        dF = -(h_in_term / (tau_c * tau_c))[:, None] * dtau
+        dF[:, KK] -= (args.Y_in * cp_k).sum(-1) * mT / tau_c
+        if mode != MODE_TAU:
+            dF += (q * (rhoV > _TINY).to(y.dtype))[:, None] * dlnrho
+        dcp = torch.cat([cp_k, ((Y * thermo.dcp_R_dT(tm, T) * R_GAS / wt)
+                                .sum(-1) * mT)[:, None]], dim=1)
+        J[:, KK, :] += dF / cp[:, None] - (F / (cp * cp))[:, None] * dcp
+    if not scaled:
+        return f, J
+    J = tau_c[:, None, None] * J + f[:, :, None] * dtau[:, None, :]
+    return f * tau_c[:, None], J

@@ -165,6 +165,20 @@ def as_torch_mechanism(mech, device) -> TorchMechanism:
                     f"{type(mech).__name__}")
 
 
+def broadcast_lanes(device, scalars, rows):
+    """f64 tensors on ``device`` broadcast along one batch axis: each of
+    ``scalars`` (name -> scalar or [B]) to [B], each of ``rows`` (name ->
+    [KK] or [B, KK]) to [B, KK]. Returns (B, {name: tensor})."""
+    f64 = dict(dtype=torch.float64, device=device)
+    ts = {k: torch.as_tensor(v, **f64) for k, v in {**scalars,
+                                                    **rows}.items()}
+    sizes = [t.shape[0] for k, t in ts.items()
+             if (t.ndim > 0 if k in scalars else t.ndim > 1)]
+    B = max(sizes) if sizes else 1
+    return B, {k: (t.expand(B) if k in scalars else t.expand(B, t.shape[-1]))
+               .contiguous() for k, t in ts.items()}
+
+
 def sweep_lane_args(tm, T0s, P0s, Y0s, t_ends, *, atol,
                     ignition_mode=IGN_T_INFLECTION, problem="CONP"):
     """(Lanes, y0) of a sweep: y0 = [Y0, T0], the constraint value (P0 for

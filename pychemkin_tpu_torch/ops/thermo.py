@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import R_GAS
+from ..constants import P_ATM, R_GAS
 
 
 def _select_coeffs(tm, T):
@@ -76,6 +76,18 @@ def dcp_R_dT(tm, T):
                                                    + T * 4.0 * a[..., 4]))
 
 
+def species_enthalpy_mass(tm, T, nasa=None):
+    """Species specific enthalpies h_k / W_k, erg/g, [B, KK]; ``nasa`` as
+    in :func:`cv_R`."""
+    h = (nasa7(tm, T) if nasa is None else nasa)[1]
+    return h * (R_GAS * T[:, None]) / tm.wt
+
+
+def mean_molecular_weight_X(tm, X):
+    """Mean molar mass from mole fractions [B, KK], g/mol."""
+    return (X * tm.wt).sum(-1)
+
+
 def mean_molecular_weight_Y(tm, Y):
     """Mean molar mass from mass fractions [B, KK], g/mol; guarded
     against all-zero Y like the reference."""
@@ -86,6 +98,12 @@ def X_to_Y(tm, X):
     """Mole fractions -> mass fractions, [B, KK]."""
     wx = X * tm.wt
     return wx / wx.sum(-1, keepdim=True)
+
+
+def Y_to_X(tm, Y):
+    """Mass fractions -> mole fractions, [B, KK]."""
+    n = Y / tm.wt
+    return n / n.sum(-1, keepdim=True)
 
 
 def Y_to_C(tm, Y, rho):
@@ -112,3 +130,21 @@ def mixture_cv_mass(tm, T, Y, nasa=None):
     """Mixture specific heat at constant volume, erg/(g K), [B]; ``nasa``
     as in :func:`cv_R`."""
     return (Y * (cv_R(tm, T, nasa) * R_GAS / tm.wt)).sum(-1)
+
+
+def mixture_enthalpy_mass(tm, T, Y):
+    """Mixture specific enthalpy, erg/g, [B]."""
+    return (Y * species_enthalpy_mass(tm, T)).sum(-1)
+
+
+def mixture_internal_energy_mass(tm, T, Y):
+    """Mixture specific internal energy, erg/g, [B]."""
+    return (Y * (u_RT(tm, T) * (R_GAS * T[:, None]) / tm.wt)).sum(-1)
+
+
+def mixture_entropy_molar(tm, T, P, X):
+    """Mixture molar entropy with the mixing terms, erg/(mol K), [B]:
+    ln X floored at ln 1e-30 as in the reference."""
+    s_mix = (s_R(tm, T) - torch.log(torch.clamp(X, min=1e-30))
+             - torch.log(P / P_ATM)[:, None])
+    return (X * s_mix).sum(-1) * R_GAS

@@ -121,3 +121,37 @@ def rate_rel(a, b, T, KK):
             x[:, KK, :] /= T[:, None]
             x[:, :, KK] *= T[:, None]
     return scale_rel(a, b)
+
+
+def h2_air(names, wt, phi):
+    """H2/air mass fractions [len(phi), KK] at equivalence ratios phi."""
+    names = [s.upper() for s in names]
+    phi = np.atleast_1d(np.asarray(phi, dtype=np.float64))
+    X = np.zeros((phi.size, len(names)))
+    X[:, names.index("H2")] = 2.0 * phi
+    X[:, names.index("O2")] = 1.0
+    X[:, names.index("N2")] = 3.76
+    Y = X * np.asarray(wt)
+    return Y / Y.sum(1, keepdims=True)
+
+
+def equilibrium_states(names, wt, B, seed):
+    """(T [B], P [B], Y [B, KK]) of equilibrium lanes: T evenly over
+    300-2500 K, H2/air at phi 0.5-2 and P 1-10 atm drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    T = np.linspace(300.0, 2500.0, B)
+    P = rng.uniform(1.0, 10.0, B) * P_ATM
+    return T, P, h2_air(names, wt, rng.uniform(0.5, 2.0, B))
+
+
+#: the 63-lane h2o2 PSR map: phi x inlet T [K] x residence time [s]
+PSR_MAP_PHI = (0.5, 1.0, 2.0)
+PSR_MAP_T_IN = (298.15, 600.0, 900.0)
+PSR_MAP_TAU = tuple(10.0 ** np.arange(-6, 1))
+
+
+def psr_map_lanes():
+    """(phi, T_in, tau), each [63], of the PSR map in row-major order."""
+    P_, T_, t_ = np.meshgrid(PSR_MAP_PHI, PSR_MAP_T_IN, PSR_MAP_TAU,
+                             indexing="ij")
+    return P_.ravel(), T_.ravel(), t_.ravel()
