@@ -12,7 +12,8 @@ kernels there at first use) and measures:
 - K5's mean time per launch of 20 attempts at 256 lanes from the sweep's
   start state (CUDA events, 10 launches after one warm-up);
 - the registers and spills ptxas reported for K5's CONP and CONV
-  instantiations without pivoting, faults or PLOG rows.
+  instantiations without pivoting, faults, PLOG rows, profiles or the
+  device-memory workspace.
 
 Each child prints one ``RESULT {...}`` line; the parent prints the card's
 name and power limit first. Comparing two trees only within one call of
@@ -44,7 +45,9 @@ def child(tree):
     build.build()
     ptxas = {}
     for fn, info in cs._build_report().items():
-        m = re.search(r"sdirk_round_kernelILi([01])E(?:Lb0ELb0ELb0E)?E", fn)
+        # the default instantiation: every flag after PROB false (three
+        # flags before the PRF and GM ones existed, five since)
+        m = re.search(r"sdirk_round_kernelILi([01])E(?:Lb0E)*E", fn)
         if m and "registers" in info:
             ptxas["CONP" if m.group(1) == "0" else "CONV"] = info
     tm = TorchMechanism(load_embedded("grisyn"), "cuda")

@@ -32,7 +32,8 @@ Phases, each of which raises on failure (exit code != 0):
    K1-K4, which must give the same status codes, ignition times within
    1e-6 relative and attempt and Newton totals within 1 %; every lane
    OK with a finite ignition time, and 8 lanes rerun through the plain
-   twins on the card within 1e-6 relative;
+   twins within 1e-6 relative (on the CPU, in parallel processes after
+   the timed phases: ``run_twin_jobs``);
 3b. the same for CONV/ENRG at 10 atm (a reflected-shock condition);
 4. ``torch.profiler`` over the first 20 attempts of the main-path sweep:
    device time by kernel and the device's idle share;
@@ -91,7 +92,33 @@ Phases, each of which raises on failure (exit code != 0):
 7e. phase 3's sweep through ``compacted_ignition_sweep`` in the order of
    ``plan_cohorts(stiffness_costs(...))``, in rounds of 512 attempts and
    again in rounds of 64 (which must compact: survivors gathered into
-   narrower rungs), each bitwise equal to phase 3 in caller order.
+   narrower rungs), each bitwise equal to phase 3 in caller order;
+7f. a ``linalg_unstable`` fault healing at rung 1 on one request of a
+   bucket-8 batch of grisyn equilibrium requests and of h2o2 PSR
+   requests: K6 and K7 FAULT on the hot path, the lane healed at rung 1,
+   its 7 companions bitwise equal to the clean batch; the FAULT
+   instantiations against their twins.
+
+8. ``solve_batch`` (profiles, heat loss, the output grid) on grisyn,
+   B lanes, n_out = 101, rtol 1e-6, atol 1e-12, through K1 and K5's PRF
+   instantiations: 8a a rapid compression machine (CONV/ENRG, V(t)
+   1 -> 0.1 cm^3 over 20 ms, wall loss htc 5e5 erg/(cm^2 K s), area
+   1 cm^2, tamb 300 K); 8b CONP/ENRG with P(t) 1 -> 2 atm over t_end and a
+   constant heat-loss rate; 8c CONP/TGIV with T(t) 900 -> 1400 K over
+   10 ms, Species_peak of OH. Each against the host loop over K1-K4 PRF
+   and 8 lanes through the twins (T, P and V at every output time within
+   1e-6; on the CPU with the other reruns), with K1, K2 and K5 PRF held
+   against their twins on the card;
+   the constant-profile ``solve_batch(n_out=2)`` bitwise equal to phase
+   3's sweep.
+
+9. the 8-copy synthetic grisyn (424 species, 2600 reactions,
+   tests/torch_port_cases.py), too large for shared memory: the size
+   chooser's storage of each kernel; K1, K2, K8 against their twins on
+   64 states, K5 over one 20-attempt round on 64 lanes, K7 on 16 lanes
+   from K6's guess (its twin on the CPU with the deferred reruns), and a
+   256-lane CONP/ENRG sweep with every lane OK, all
+   through the GM instantiations (each lane in a device-memory workspace).
 
 Every row of the kernel table reads its launches from the main-path run
 of its instantiation (``home``), and every kernel that a main-path run
@@ -100,8 +127,9 @@ object, the card's name and power limit from nvidia-smi, and
 ``{"ok": true, "device": ...}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--batch`` and
-``--t-end`` shrink phases 2-4 for a quick check; ``--phases 7`` runs the
-build, phase 3's CONP sweep and phase 7 only).
+``--t-end`` shrink phases 2-4 and 8 for a quick check; ``--phases 7`` runs
+the build, phase 3's CONP sweep and phase 7 only; ``--phases 7f``,
+``8`` (with phase 3's CONP sweep) and ``9`` that phase only).
 """
 
 from __future__ import annotations
@@ -540,7 +568,7 @@ def _clone(s):
 
 
 def _k5_vs_twin(tm, problem, lanes, events, s0, mode, pivot=False,
-                species=0, share=0.99):
+                species=0, share=0.99, prf=False, gm=False):
     """One round of K5_ATTEMPTS attempts from ``s0`` through
     ``kernels.sdirk_round`` and through the masked loop over the plain
     twins (``odeint.sweep_round``). Checks: every carried field finite
@@ -548,8 +576,9 @@ def _k5_vs_twin(tm, problem, lanes, events, s0, mode, pivot=False,
     attempt and Newton counts on at least ``share`` of the lanes, and on
     them t, y, h and the event accumulators within 1e-8 relative (an
     event time not yet found must be unfound in both); attempt and Newton
-    totals within 1 %. Returns (kernel state, twin state, twin ms,
-    statistics)."""
+    totals within 1 %. ``prf``: the lanes carry profiles; ``gm``: the
+    mechanism runs K5's GM instantiation. Returns (kernel state, twin
+    state, twin ms, statistics)."""
     import torch
     from pychemkin_tpu_torch import kernels
     from pychemkin_tpu_torch.ops import odeint, reactors
@@ -558,7 +587,7 @@ def _k5_vs_twin(tm, problem, lanes, events, s0, mode, pivot=False,
     tag = (f"K5 {tm.KK} species {problem} {reactors.IGNITION_MODES[mode]}"
            f"{' pivoted' if pivot else ''}{' with faults' if fault else ''}")
     name = kernels.launch_name("sdirk_round", problem, pivot, fault,
-                               kernels.extended(tm))
+                               kernels.extended(tm), prf=prf, gm=gm)
     with torch.inference_mode():
         sk = _launched(name, lambda: kernels.sdirk_round(
             tm, lanes, _clone(s0), rtol=1e-6, budget=20_000,
@@ -689,6 +718,114 @@ def check_k5(tm, problem, P0, t_end, reps):
     return row
 
 
+# -- the plain-twin reruns, deferred and run in parallel processes ---------
+
+#: (job, check(result, seconds)) of every twin rerun of the sweeps and of
+#: phase 9's PSR solve; they run after the timed phases
+#: (``run_twin_jobs``), each in its own process on the CPU: the twins are
+#: many tiny operations, which the CPU runs twice as fast as the card
+#: launches them, and processes on the CPU run side by side where
+#: processes on one card take turns (on the card, in parallel processes,
+#: they took 357 s and the script 1175 s of its 1200)
+_TWIN_JOBS = []
+TWIN_WORKERS = 8
+
+
+def _mech_spec(tm):
+    """What a worker process needs to rebuild ``tm`` on the card: its
+    record (numpy arrays)."""
+    return tm.record
+
+
+def _defer_twin(job, check):
+    _TWIN_JOBS.append((job, check))
+
+
+def _twin_worker(job):
+    """One deferred twin rerun, in a worker process on the CPU: ("sweep",
+    record, problem, energy, T0s, P0s, Y0, t_end, kw) through
+    ``reactors._sweep(plain_ops)`` -> (times, status); ("batch", record,
+    problem, energy, T0s, P0s, Y0, t_ends, kw) through
+    ``reactors._solve_batch(plain_ops)`` -> T, P, volume and status at the
+    output times; ("psr", record, mode, energy, args, y0, None, None, None)
+    through ``psr.solve_psr_plain`` -> the PSRSolution's fields. Returns
+    (result as numpy, seconds)."""
+    import torch
+    from pychemkin_tpu_torch.mechanism import TorchMechanism
+    from pychemkin_tpu_torch.ops import psr, reactors
+    torch.set_num_threads(1)
+    kind, record, problem, energy, T0s, P0s, Y0, t_end, kw = job
+    t0 = time.perf_counter()
+    tm = TorchMechanism(record, "cpu")
+    with torch.inference_mode():
+        if kind == "psr":
+            args = psr.PSRArgs(*(torch.as_tensor(a) for a in T0s))
+            sol = psr.solve_psr_plain(tm, problem, energy, args,
+                                      torch.as_tensor(P0s), psr.PSRControls())
+            out = {f: getattr(sol, f).numpy() for f in sol._fields}
+        elif kind == "sweep":
+            code = reactors.variant(problem, energy)
+            times, _, status = reactors._sweep(
+                reactors.plain_ops(code), tm, problem, energy, T0s, P0s, Y0,
+                t_end, **kw, device="cpu", profile=False)
+            out = (times.numpy(), status.numpy())
+        else:
+            code = reactors.variant(problem, energy)
+            full = dict(constraint_profile=None, t_profile=None,
+                        qloss_profile=None, area_profile=None, volume=1.0,
+                        htc=0.0, tamb=298.15, area=0.0, t_start=0.0,
+                        max_steps_per_segment=20_000, h0=0.0,
+                        jac_mode="analytic", profile=False)
+            full.update(_profiles_on(kw, "cpu"), device="cpu")
+            sol = reactors._solve_batch(reactors.plain_ops(code), tm, problem,
+                                        energy, T0s, P0s, Y0, t_end, **full)
+            out = {f: getattr(sol, f).numpy()
+                   for f in ("T", "P", "volume", "status")}
+    return out, time.perf_counter() - t0
+
+
+def _batch_twin_check(tag, pick, mine):
+    """The check of a deferred phase 8 twin rerun: the same status, T, P
+    and V at every output time within 1e-6 relative."""
+    import numpy as np
+
+    def check(res, seconds):
+        err = {f: float(np.max(np.abs(mine[f] - res[f])
+                               / np.maximum(np.abs(res[f]), 1e-300)))
+               for f in ("T", "P", "volume")}
+        print(f"{tag}: plain-twin rerun of lanes {pick.tolist()} "
+              f"({seconds:.1f} s): T, P, V at every output time within "
+              f"{err}", flush=True)
+        assert np.array_equal(res["status"], mine["status"]), \
+            f"{tag}: twin status"
+        assert max(err.values()) <= 1e-6, f"{tag}: vs twins {err}"
+        _TWIN_RESULTS[tag] = err
+    return check
+
+
+#: the deferred phase 8 twin comparisons, by tag
+_TWIN_RESULTS = {}
+
+
+def run_twin_jobs():
+    """Run the deferred twin reruns in up to TWIN_WORKERS processes on the
+    CPU (spawned; each rebuilds its mechanism from the record), the longest
+    first, and apply each one's check. Returns the wall seconds."""
+    import multiprocessing as mp
+    if not _TWIN_JOBS:
+        return 0.0
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    # the output-grid reruns are the longest: they start first
+    jobs = sorted(_TWIN_JOBS, key=lambda jc: jc[0][0] != "batch")
+    with ctx.Pool(min(TWIN_WORKERS, len(jobs))) as pool:
+        results = pool.map(_twin_worker, [j for j, _ in jobs], chunksize=1)
+    for (_, check), (res, seconds) in zip(jobs, results):
+        check(res, seconds)
+    _TWIN_JOBS.clear()
+    return time.perf_counter() - t0
+
+
 def sweep_phase(tm, problem, P0, B, t_end, *, energy="ENRG", label=None,
                 mode="T_inflection", kw=None, T0=(1000.0, 1400.0), Y0=None,
                 mech="grisyn", host_loop=True, require_ignition=True):
@@ -698,7 +835,8 @@ def sweep_phase(tm, problem, P0, B, t_end, *, energy="ENRG", label=None,
     [B], composition ``Y0``, default stoichiometric H2/air) through K1 and
     K5, then (``host_loop``) through the host-driven loop over K1-K4, each
     with the launch counters set to 0 just before it and read just after;
-    then 8 lanes through the plain twins on the card. Every lane must be OK
+    then 8 lanes through the plain twins (deferred to ``run_twin_jobs``,
+    on the CPU). Every lane must be OK
     with a finite time (``require_ignition``), the host loop must give the
     same status, times within 1e-6 and totals within 1 %, and the twins
     times within 1e-6. Returns ({run label: launches}, summary, the K5
@@ -806,23 +944,23 @@ def sweep_phase(tm, problem, P0, B, t_end, *, energy="ENRG", label=None,
           f"{np.nanmax(times_np):.6e}", flush=True)
 
     pick = np.unique(np.linspace(0, B - 1, min(8, B)).round().astype(int))
-    t1 = time.perf_counter()
-    ref, _, st_r = reactors._sweep(
-        reactors.plain_ops(code), tm, problem, energy, T0[pick], P0s[pick],
-        Y0, t_end, **kw, profile=False)
-    torch.cuda.synchronize()
-    ref = ref.cpu().numpy()
-    fin = np.isfinite(ref)
-    assert np.array_equal(fin, np.isfinite(times_np[pick])), \
-        f"{tag}: kernel vs twin finite times"
-    rel = np.abs(times_np[pick][fin] - ref[fin]) / np.abs(ref[fin])
-    rel_max = float(rel.max(initial=0.0))
-    print(f"  plain-twin rerun of lanes {pick.tolist()}: max relative "
-          f"difference {rel_max:.3e} ({time.perf_counter() - t1:.1f} s)",
-          flush=True)
-    assert (st_r.cpu().numpy() == int(SolveStatus.OK)).all()
-    assert rel_max <= 1e-6, f"{tag}: kernel vs twin times {rel_max}"
-    summary.update(max_rel_vs_plain=rel_max)
+    kw_t = {k: v for k, v in kw.items() if k != "device"}
+
+    def check(res, seconds):
+        ref, st_r = res
+        fin = np.isfinite(ref)
+        assert np.array_equal(fin, np.isfinite(times_np[pick])), \
+            f"{tag}: kernel vs twin finite times"
+        rel = np.abs(times_np[pick][fin] - ref[fin]) / np.abs(ref[fin])
+        rel_max = float(rel.max(initial=0.0))
+        print(f"{tag}: plain-twin rerun of lanes {pick.tolist()}: max "
+              f"relative difference {rel_max:.3e} ({seconds:.1f} s)",
+              flush=True)
+        assert (st_r == int(SolveStatus.OK)).all()
+        assert rel_max <= 1e-6, f"{tag}: kernel vs twin times {rel_max}"
+        summary.update(max_rel_vs_plain=rel_max)
+    _defer_twin(("sweep", _mech_spec(tm), problem, energy, T0[pick],
+                 P0s[pick], Y0, t_end, kw_t), check)
     return ({f"{label}_{p}": r["launches"] for p, r in runs.items()},
             summary, (k5["times"], st))
 
@@ -2333,6 +2471,638 @@ def phases_2_to_6(tm, tm_h, tms, B, reps, t_end):
             base)
 
 
+# -- phase 7f: linalg_unstable faults in K6 and K7, served ---------------------
+
+def _served_bucket(tm, kind, payloads, spec=None):
+    """One bucket-8 batch of ``payloads`` served by ``ChemServer(tm)`` on
+    the card (admitted before the worker starts: one batch, lanes in
+    order), under the fault ``spec`` if given. Returns (results, wall s,
+    launches)."""
+    import torch
+    from pychemkin_tpu_torch import kernels, serve, telemetry
+    from pychemkin_tpu_torch.resilience import faultinject
+    server = serve.ChemServer(tm, bucket_sizes=(8,), max_delay_ms=50.0,
+                              recorder=telemetry.MetricsRecorder(),
+                              device="cuda")
+    futs = [server.submit(kind, **p) for p in payloads]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with faultinject.inject(*([spec] if spec else [])):
+        with server:
+            res = _await(futs)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def steady_fault_phase(tm, tm_h, reps):
+    """Phase 7f: a ``linalg_unstable`` fault healing at rung 1 on one
+    request of a bucket-8 batch of grisyn equilibrium requests (K6) and of
+    h2o2 PSR requests (K7), served on the card: the faulted lane runs the
+    FAULT instantiation, fails on the hot path and is healed at rung 1 by
+    the clean kernel; its 7 companions are bitwise equal to the batch
+    served without the fault. Then the FAULT instantiations against their
+    twins on the card (the same 8 lanes, the victim flagged): equal status
+    codes, values within the phase 2c tolerances on the lanes OK in both.
+    Returns ({label: launches}, summary, kernel rows)."""
+    import numpy as np
+    import torch
+    import pychemkin_tpu_torch as ptt
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import equilibrium, psr, thermo
+    from pychemkin_tpu_torch.resilience.faultinject import FaultSpec
+    cases = _port_cases()
+    f64 = dict(dtype=torch.float64, device="cuda")
+    eq_pay = cases.serve_equilibrium_payloads(
+        tm.record.species_names, tm.record.wt, 8, seed=1)
+    Y_in, T_in, tau = _map_lanes(tm_h)
+    sel = torch.as_tensor(np.linspace(2048, 4095, 8).round().astype(np.int64),
+                          device="cuda")
+    Y_in, T_in, tau = Y_in[sel], T_in[sel], tau[sel]
+    with torch.inference_mode():
+        h_in = thermo.mixture_enthalpy_mass(tm_h, T_in, Y_in)
+    g = ptt.equilibrate(tm_h, T_in, PSR_P, Y_in, option=5, device="cuda")
+    psr_pay = cases.serve_psr_payloads(
+        *[x.cpu().numpy() for x in (Y_in, h_in, tau, g.T, g.Y)], P=PSR_P)
+    launches, summary, rows = {}, {}, []
+    for kind, mech, payloads in (("equilibrium", tm, eq_pay),
+                                 ("psr", tm_h, psr_pay)):
+        clean, _, _ = _served_bucket(mech, kind, payloads)
+        victim = next(i for i, r in enumerate(clean)
+                      if r.ok and r.rescue_rungs == 0)
+        res, wall, lk = _served_bucket(
+            mech, kind, payloads, FaultSpec("linalg_unstable", (victim,),
+                                            heal_at=1))
+        label = f"serve_fault_{kind}"
+        launches[label] = lk
+        v = res[victim]
+        same = all(_same_values(r.value, c.value) and r.status == c.status
+                   for i, (r, c) in enumerate(zip(res, clean)) if i != victim)
+        healed = _same_values(v.value, clean[victim].value)
+        fname = "equil_solve_fault" if kind == "equilibrium" else \
+            kernels.launch_name("psr_solve", fault=True,
+                                xk=kernels.extended(mech))
+        cname = "equil_solve" if kind == "equilibrium" else \
+            kernels.launch_name("psr_solve", xk=kernels.extended(mech))
+        print(f"serve {kind} linalg_unstable on lane {victim}: {v.status_name}"
+              f" rescued {v.rescued} at rung {v.rescue_rungs}, value equal "
+              f"to the clean solve: {healed}; companions bitwise equal to the "
+              f"clean batch: {same}; {wall:.2f} s; launches "
+              f"{ {k: n for k, n in lk.items() if n} }", flush=True)
+        assert v.ok and v.rescued and v.rescue_rungs == 1, (kind, v)
+        assert same, f"{kind}: companions of the faulted lane differ"
+        assert lk[fname] > 0 and lk[cname] > 0, lk
+        summary[kind] = dict(victim=victim, wall_s=wall,
+                             rescue_rungs=v.rescue_rungs,
+                             companions_bit_identical=same,
+                             healed_equals_clean=healed)
+        # the FAULT instantiation against its twin on the same lanes
+        fault = torch.zeros(8, dtype=torch.bool, device="cuda")
+        fault[victim] = True
+        with torch.inference_mode():
+            if kind == "equilibrium":
+                T, P, Y = (torch.tensor(np.array([p[k] for p in payloads]),
+                                        **f64) for k in ("T", "P", "Y"))
+                call = lambda: kernels.equil_solve(  # noqa: E731
+                    mech, T, P, Y, 1, 80, fault=fault)
+                k = _launched(fname, call)
+                t1 = time.perf_counter()
+                q = equilibrium.equilibrate_plain(mech, T, P, Y, 1, 80,
+                                                  fault=fault)
+                torch.cuda.synchronize()
+                pms = (time.perf_counter() - t1) * 1e3
+                assert torch.equal(k.status, q.status), \
+                    f"K6 FAULT vs twin status {k.status} {q.status}"
+                err, _, _ = _compare_eq("K6 FAULT", k, q)
+                ms = _time_ms(call, reps)
+                bms, by = _bound_ms(8 * _eq_bytes(mech),
+                                    8 * _equil_flops(mech, 1))
+                rows.append(_row(
+                    fname, "equilibrium.cu",
+                    "ops/equilibrium.py:150 (_solve; linalg_unstable "
+                    ":269-272, ops/linalg.py:479-487)", home=label,
+                    mech="grisyn", max_abs_err=float((k.T - q.T).abs().max()),
+                    scale_rel_err=err["T"], ms=ms, plain_ms=pms,
+                    bound_ms=bms, bound_by=by, library_ms=None, batch=8,
+                    status=k.status.tolist()))
+            else:
+                args = psr.PSRArgs(
+                    P=torch.full((8,), PSR_P, **f64), Y_in=Y_in, h_in=h_in,
+                    tau=tau, volume=torch.zeros(8, **f64),
+                    mdot=torch.full((8,), PSR_MDOT, **f64),
+                    qloss=torch.zeros(8, **f64), T_fixed=torch.zeros(8, **f64))
+                y0 = torch.cat([g.Y, g.T[:, None]], 1).contiguous()
+                ctl = psr.PSRControls()
+                call = lambda: kernels.psr_solve(  # noqa: E731
+                    mech, "tau", "ENRG", args, y0, ctl, fault=fault)
+                k = _launched(fname, call)
+                t1 = time.perf_counter()
+                q = psr.solve_psr_plain(mech, "tau", "ENRG", args, y0, ctl,
+                                        fault=fault)
+                torch.cuda.synchronize()
+                pms = (time.perf_counter() - t1) * 1e3
+                assert int(k.status[victim]) == int(q.status[victim]) == 5, \
+                    (k.status, q.status)
+                ok = (k.status == 0) & (q.status == 0)
+                eT = float(((k.T - q.T).abs() / q.T)[ok].max()) \
+                    if bool(ok.any()) else 0.0
+                assert eT <= PSR_TOL["T"] * 100, f"K7 FAULT T {eT}"
+                ms = _time_ms(call, max(reps // 4, 2))
+                bms, by = _bound_ms(*_psr_work(mech, k))
+                rows.append(_row(
+                    fname, "psr_solve.cuh",
+                    "ops/psr.py:273 (solve_psr; linalg_unstable :298-301, "
+                    "ops/linalg.py:479-487)", home=label, mech="h2o2",
+                    max_abs_err=float((k.T - q.T).abs()[ok].max())
+                    if bool(ok.any()) else 0.0,
+                    scale_rel_err=eT, ms=ms, plain_ms=pms, bound_ms=bms,
+                    bound_by=by, library_ms=None, batch=8,
+                    status=k.status.tolist()))
+        _print_row(rows[-1])
+    return launches, summary, rows
+
+
+# -- phase 8: solve_batch with profiles, heat loss and the output grid -------
+
+N_OUT = 101
+#: lanes of phase 8's host-driven K1-K4 run
+HOST_LANES = 512
+#: phase 8's cells on grisyn at B lanes: (label, problem, energy, T0 range,
+#: t_end, solve_batch's profile arguments, ignition mode and kwargs). 8a
+#: is a rapid compression machine: V(t) 1 -> 0.1 cm^3 over 20 ms, then
+#: held, with wall loss; at T0 450-550 K its lanes do not ignite (the
+#: loss, htc area / m ~ 100 1/s of (T - tamb), cools the charge faster
+#: than the compression heats it), so the range is moved to 1000-1100 K.
+PHASE8 = (
+    ("8a_rcm", "CONV", "ENRG", (1000.0, 1100.0), 0.05,
+     dict(constraint_profile=((0.0, 0.02, 0.05), (1.0, 0.1, 0.1)),
+          htc=5e5, area=1.0, tamb=300.0), "T_inflection", None),
+    ("8b_p_ramp", "CONP", "ENRG", (1000.0, 1400.0), 0.05,
+     dict(constraint_profile=((0.0, 0.05), (P_ATM, 2 * P_ATM)),
+          qloss_profile=((0.0, 0.05), (1e6, 1e6))), "T_inflection", None),
+    ("8c_t_ramp", "CONP", "TGIV", (900.0, 900.0), 0.01,
+     dict(t_profile=((0.0, 0.01), (900.0, 1400.0))), "Species_peak",
+     {"species_index": OH}),
+)
+
+
+def _profiles_on(kw, device):
+    """solve_batch's profile arguments with each (knots, values) pair as a
+    Profile of f64 tensors on ``device``."""
+    import torch
+    from pychemkin_tpu_torch.ops import reactors
+    out = {}
+    for k, v in kw.items():
+        if k.endswith("_profile"):
+            v = reactors.Profile(*(torch.tensor(a, dtype=torch.float64,
+                                                device=device) for a in v))
+        out[k] = v
+    return out
+
+
+def _batch_args(tm, problem, energy, T0, t_end, prof, mode, ikw, B):
+    """The positional and keyword arguments of phase 8's solve_batch."""
+    import numpy as np
+    T0s = np.linspace(T0[0], T0[1], B)
+    kw = dict(n_out=N_OUT, rtol=1e-6, atol=1e-12, ignition_mode=mode,
+              ignition_kwargs=ikw, device="cuda",
+              **_profiles_on(prof, "cuda"))
+    return (tm, problem, energy, T0s, np.full(B, P_ATM), _stoich_Y(tm),
+            np.full(B, t_end)), kw
+
+
+def _solve_timed(ops, args, kw):
+    """``reactors._solve_batch`` (K5 with ``ops`` None, else the host loop
+    over ``ops``) with the launch counters set to 0 just before it and read
+    just after: (solution, wall s, launches)."""
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import reactors
+    full = dict(constraint_profile=None, t_profile=None, qloss_profile=None,
+                area_profile=None, volume=1.0, htc=0.0, tamb=298.15,
+                area=0.0, t_start=0.0, max_steps_per_segment=20_000, h0=0.0,
+                jac_mode="analytic", profile=False)
+    full.update(kw)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sol = reactors._solve_batch(ops, *args, **full)
+    torch.cuda.synchronize()
+    return sol, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def _tpv_rel(a, b, pick=None):
+    """Max relative difference of T, P and V at every output time."""
+    out = {}
+    for f in ("T", "P", "volume"):
+        x, y = getattr(a, f), getattr(b, f)
+        if pick is not None:
+            x = x[pick]
+        out[f] = float(((x - y).abs() / y.abs().clamp_min(1e-300)).max())
+    return out
+
+
+def _prf_kernel_rows(tm, setup, code, label, B_rows, reps, mech="grisyn"):
+    """K1 and K2 PRF against their twins on B_rows random states at random
+    times inside the profiles, and K5 PRF over one round of K5_ATTEMPTS
+    attempts on K5_BATCH lanes from the start of ``setup``'s lanes against
+    the twin: rows with the kernels' times and bounds."""
+    import numpy as np
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import odeint, reactors
+    rows = []
+    args = setup.args
+    sub = torch.arange(B_rows, device="cuda") % setup.y0.shape[0]
+    a = odeint._take(args, sub)
+    y, _ = _states(tm, B_rows, 0, realistic=True)
+    T = y[:, tm.KK]
+    t = torch.tensor(np.random.default_rng(1).uniform(
+        0.0, float(setup.ts[0, -1]), B_rows), dtype=torch.float64,
+        device="cuda")
+    rhs_t, jac_t = reactors.RHS_PRF_TWINS[code]
+    xk = kernels.extended(tm)
+    mech_b = _mech_bytes(tm)
+    N = tm.N
+    for kname, twin, src, rep in (
+            ("rhs", rhs_t, "rhs.cu", K1_REPLACES[code] + "; profiles "
+             ":50, :84"),
+            ("rhs_jac", jac_t, "rhs_jac_prf.cu", "ops/jacobian.py:558-700 "
+             "(profile terms); " + K2_REPLACES[code])):
+        name = kernels.launch_name(kname, code, xk=xk, prf=True)
+        fn = getattr(kernels, kname)
+        out = _launched(name, lambda: fn(tm, y, a, code, t=t))
+        want = twin(tm, t, y, a)
+        torch.cuda.synchronize()
+        if kname == "rhs":
+            err = _rate_rel(out, want, T, tm.KK)
+            mae = float((out - want).abs().max())
+            nbytes = B_rows * (2 * N + 2) * 8 + mech_b
+        else:
+            err = max(_rate_rel(out[0], want[0], T, tm.KK),
+                      _rate_rel(out[1], want[1], T, tm.KK))
+            mae = float((out[1] - want[1]).abs().max())
+            nbytes = B_rows * (N + 2 + N + N * N) * 8 + mech_b
+        assert err <= (1e-12 if kname == "rhs" else 1e-11), \
+            f"{name} vs twin {err:.3e}"
+        ms = _time_ms(lambda: fn(tm, y, a, code, t=t), reps)
+        pms = _time_ms(lambda: twin(tm, t, y, a), max(reps // 10, 2))
+        bms, by = _bound_ms(nbytes, B_rows * _rate_flops(tm, kname ==
+                                                         "rhs_jac", code))
+        home = f"{label}_k5" if kname == "rhs" else f"{label}_host_loop"
+        rows.append(_row(name, src, rep, home=home, mech=mech, batch=B_rows,
+                         max_abs_err=mae, scale_rel_err=err, ms=ms,
+                         plain_ms=pms, bound_ms=bms, bound_by=by,
+                         library_ms=None))
+        _print_row(rows[-1])
+    # K5 PRF: one round from the lanes' start, against the twin
+    pick = torch.arange(K5_BATCH, device="cuda") * (
+        setup.y0.shape[0] // K5_BATCH)
+    lanes = odeint._take(setup.lanes, pick)
+    lanes = lanes._replace(t_end=setup.ts[pick, -1].contiguous())
+    with torch.inference_mode():
+        s0 = odeint.sweep_start(reactors.kernel_ops(code), tm, lanes,
+                                setup.y0[pick].contiguous(), 1e-6,
+                                setup.events, t0=setup.ts[pick, 0].contiguous())
+    mode = reactors.IGNITION_MODES.index(
+        "Species_peak" if code.endswith("TGIV") else "T_inflection")
+    species = int(setup.kw["species_index"])
+    sk, st, pms, stats = _k5_vs_twin(tm, code, lanes, setup.events, s0, mode,
+                                     species=species, prf=True)
+    ms = _k5_ms(tm, lanes, s0, max(reps // 4, 2), event_mode=mode,
+                problem=code, species_index=species)
+    att, newton = stats["totals"]["attempts"][0], stats["totals"]["newton"][0]
+    bms, by, per_call = _k5_bound(tm, code, 1, K5_BATCH, K5_BATCH, att,
+                                  newton)
+    fin = st.y.isfinite()
+    rows.append(_row(
+        kernels.launch_name("sdirk_round", code, xk=xk, prf=True),
+        "sdirk_round.cuh", "ops/odeint.py:451 (_segment_fns) with "
+        "ops/reactors.py:50-160 (profiles, heat loss)", home=f"{label}_k5",
+        mech=mech, max_abs_err=float((sk.y - st.y).abs()[fin].max()),
+        scale_rel_err=max(stats["rel_err"].values()), ms=ms, plain_ms=pms,
+        bound_ms=bms, bound_by=by, per_call_bound_sum_ms=per_call,
+        library_ms=None, batch=K5_BATCH, attempts=K5_ATTEMPTS, **stats))
+    _print_row(rows[-1])
+    return rows
+
+
+def solve_batch_phase(tm, B, base, reference_sweeps, reps, t_end=0.05):
+    """Phase 8: ``solve_batch`` on grisyn at B lanes, n_out = N_OUT, rtol
+    1e-6, atol 1e-12, for the cells of PHASE8: through K1 and K5 (PRF),
+    then the host loop over K1-K4 (K1/K2 PRF) on HOST_LANES lanes, then 8
+    lanes through the twins (deferred to ``run_twin_jobs``, on the CPU),
+    the card's runs with the launch counters read around them: every
+    lane OK, the host loop's status and T, P, V at every output time within
+    1e-6 relative, the twins' within 1e-6; the kernel rows of K1, K2 and K5
+    PRF against their twins; and the constant-profile solve_batch at
+    n_out = 2 bitwise equal to phase 3's sweep (``base``, at ``t_end``).
+    Returns ({label: launches}, summaries, rows)."""
+    import numpy as np
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import reactors
+    from pychemkin_tpu_torch.resilience.status import (SolveStatus,
+                                                       status_counts)
+    launches, summaries, rows = {}, [], []
+    for label, problem, energy, T0, t_end, prof, mode, ikw in PHASE8:
+        code = reactors.variant(problem, energy)
+        args, kw = _batch_args(tm, problem, energy, T0, t_end, prof, mode,
+                               ikw, B)
+        tag = f"{label} {problem}/{energy}"
+        sol, wall, lk = _solve_timed(None, args, kw)
+        launches[f"{label}_k5"] = lk
+        st = sol.status.cpu().numpy()
+        att = sol.n_steps + sol.n_rejected
+        name5 = kernels.launch_name("sdirk_round", code,
+                                    xk=kernels.extended(tm), prf=True)
+        name1 = kernels.launch_name("rhs", code, xk=kernels.extended(tm),
+                                    prf=True)
+        ok_share = float((st == int(SolveStatus.OK)).mean())
+        Tmax = float(sol.T.max())
+        ref = reference_sweeps.get(code)
+        print(f"{tag} B={B} n_out={N_OUT}: wall {wall:.3f} s, "
+              f"{B / wall:.2f} solutions/s, attempts {int(att.sum())} (max "
+              f"per lane {int(att.max())}), Newton iterations "
+              f"{int(sol.n_newton.sum())}, lanes OK {ok_share:.4f}, status "
+              f"{status_counts(st)}, T max {Tmax:.1f} K, ignition times "
+              f"{float(sol.ignition_time.nan_to_num(0).min()):.4e}-"
+              f"{float(sol.ignition_time.nan_to_num(0).max()):.4e} s; the "
+              f"constant-profile sweep of this reactor: "
+              f"{ {k: ref[k] for k in ('wall_s', 'ignitions_per_s', 'attempts', 'newton')} if ref else None}"
+              f"; launches { {k: v for k, v in lk.items() if v} }",
+              flush=True)
+        assert lk[name5] > 0 and lk[name1] > 0, lk
+        assert lk[kernels.launch_name("rhs_jac", code,
+                                      xk=kernels.extended(tm), prf=True)] \
+            == lk["bordered_factor"] == 0, lk
+        assert ok_share == 1.0, f"{tag}: status {status_counts(st)}"
+        if energy == "ENRG":
+            assert Tmax > 2000.0, f"{tag}: the lanes did not ignite"
+        assert torch.isfinite(sol.T).all() and torch.isfinite(sol.Y).all()
+        # the host loop over K1-K4 with profiles, on HOST_LANES of the
+        # lanes (each lane is its own block in K5: its steps do not depend
+        # on the batch)
+        hp = np.unique(np.linspace(0, B - 1, min(HOST_LANES, B)).round()
+                       .astype(int))
+        ah = (args[0], args[1], args[2], args[3][hp], args[4][hp], args[5],
+              args[6][hp])
+        host, wall_h, lh = _solve_timed(reactors.kernel_ops(code), ah, kw)
+        launches[f"{label}_host_loop"] = lh
+        hpt = torch.as_tensor(hp, device="cuda")
+        assert lh[name5] == 0 and lh["bordered_factor"] > 0, lh
+        assert torch.equal(host.status, sol.status[hpt]), f"{tag}: host status"
+        e_host = _tpv_rel(sol, host, hpt)
+        att_h = int((host.n_steps + host.n_rejected).sum())
+        att_k = int(att[hpt].sum())
+        print(f"  vs the host loop over K1-K4 on {hp.size} lanes "
+              f"({wall_h:.3f} s, attempts {att_h}, K5 {att_k}): T, P, V "
+              f"within {e_host}", flush=True)
+        assert abs(att_h - att_k) <= 0.01 * att_k, f"{tag}: attempts"
+        assert max(e_host.values()) <= 1e-6, f"{tag}: vs host loop {e_host}"
+        # 8 lanes through the twins (deferred: on the CPU in parallel after
+        # the timed phases)
+        pick = np.unique(np.linspace(0, B - 1, 8).round().astype(int))
+        mine = {f: getattr(sol, f)[torch.as_tensor(pick, device="cuda")]
+                .cpu().numpy() for f in ("T", "P", "volume", "status")}
+        _defer_twin(("batch", _mech_spec(tm), problem, energy,
+                     args[3][pick], args[4][pick], args[5], args[6][pick],
+                     {k: v for k, v in kw.items() if k != "device"} | {
+                         k: v for k, v in prof.items()}),
+                    _batch_twin_check(tag, pick, mine))
+        setup = reactors.batch_setup(*args, **{k: v for k, v in kw.items()
+                                               if k not in ("rtol",)})
+        rows.extend(_prf_kernel_rows(tm, setup, code, label, B, reps))
+        summaries.append(dict(
+            label=label, problem=problem, energy=energy, T0=list(T0),
+            t_end=t_end, B=B, n_out=N_OUT, wall_s=wall,
+            solutions_per_s=B / wall, attempts=int(att.sum()),
+            max_attempts=int(att.max()), newton=int(sol.n_newton.sum()),
+            ok_share=ok_share, status=status_counts(st), T_max=Tmax,
+            host_loop_wall_s=wall_h, max_rel_vs_host_loop=e_host,
+            constant_profile_sweep={k: ref[k] for k in (
+                "wall_s", "ignitions_per_s", "attempts", "newton")}
+            if ref else None))
+    # the constant-profile special case against phase 3's sweep, bitwise
+    base_t, base_st = base
+    args, kw = _batch_args(tm, "CONP", "ENRG", (1000.0, 1400.0), t_end, {},
+                           "T_inflection", None, B)
+    kw["n_out"] = 2
+    sol, wall, lk = _solve_timed(None, args, kw)
+    launches["8_constant_n_out_2"] = lk
+    same_t = np.array_equal(sol.ignition_time.cpu().numpy(), base_t,
+                            equal_nan=True)
+    same_s = np.array_equal(sol.status.cpu().numpy(), base_st)
+    print(f"solve_batch constant profiles, n_out=2, B={B}: {wall:.3f} s; "
+          f"times bitwise equal to phase 3's sweep: {same_t}, status: "
+          f"{same_s}", flush=True)
+    assert same_t and same_s, "constant-profile solve_batch != phase 3"
+    summaries.append(dict(label="8_constant_n_out_2", wall_s=wall,
+                          bitwise_equal_to_phase3=same_t and same_s))
+    return launches, summaries, rows
+
+
+# -- phase 9: a mechanism too large for shared memory -----------------------
+
+BIG_COPIES = 8
+BIG_B = 256
+BIG_CHECK_B = 64
+BIG_PSR_B = 16
+
+
+def large_mech_phase(tm, reps):
+    """Phase 9: the 8-copy synthetic grisyn (424 species, 2600 reactions;
+    tests/torch_port_cases.py): the size chooser's storage for each kernel
+    at the card's limit; K1, K2 and K8 against their twins on BIG_CHECK_B
+    random states; K5 over one round of K5_ATTEMPTS attempts on
+    BIG_CHECK_B lanes against the twin; K7 on BIG_PSR_B lanes from K6's
+    HP equilibrium guess against the twin; and a BIG_B CONP/ENRG sweep
+    with every lane OK. Every launch of K1, K2, K5, K7 and K8 must be the
+    GM instantiation. Returns ({label: launches}, summary, rows)."""
+    import ctypes
+    import numpy as np
+    import torch
+    import pychemkin_tpu_torch as ptt
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import odeint, psr, reactors, thermo
+    from pychemkin_tpu_torch.resilience.status import (SolveStatus,
+                                                       status_counts)
+    KK, N = tm.KK, tm.N
+    limit = kernels.smem_limit("cuda")
+    lib = kernels.build.library()
+    view = ctypes.byref(kernels.mech_view(tm))
+    storage = {}
+    for name in ("rhs", "rhs_jac", "sdirk_round", "gershgorin_rate",
+                 "psr_solve", "equil_solve"):
+        s = kernels.storage(name, tm, limit)
+        c_doubles = (lib.chem_psr_lane_doubles(view) if name == "psr_solve"
+                     else lib.chem_equil_lane_doubles(view)
+                     if name == "equil_solve" else lib.chem_lane_doubles(
+                         view, kernels._LANE_IDS[name], 0))
+        assert 8 * c_doubles == s.lane_bytes, (name, c_doubles, s)
+        storage[name] = s._asdict()
+        print(f"storage {name}: {s} (limit {limit} bytes)", flush=True)
+        if name != "equil_solve":
+            assert s.kind == "global", (name, s)
+    launches, rows = {}, []
+    mech_b = _mech_bytes(tm)
+    # K1, K2, K8 against their twins
+    kernels.reset_launches()
+    y, P = _states(tm, BIG_CHECK_B, 0, realistic=True)
+    T = y[:, KK]
+    for kname, src, rep in (
+            ("rhs", "rhs.cu", K1_REPLACES["CONP"]),
+            ("rhs_jac", "rhs_jac_gm.cu", K2_REPLACES["CONP"]),
+            ("gershgorin_rate", "gershgorin.cu", "ops/odeint.py:92")):
+        name = kernels.launch_name(kname, xk=kernels.extended(tm), gm=True)
+        fn = getattr(kernels, kname)
+        twin = {"rhs": reactors.RHS_TWINS["CONP"][0],
+                "rhs_jac": reactors.RHS_TWINS["CONP"][1],
+                "gershgorin_rate": lambda tm_, y_, c_: odeint.gershgorin_rate(
+                    reactors.RHS_TWINS["CONP"][1](tm_, y_, c_)[1])}[kname]
+        out = _launched(name, lambda: fn(tm, y, P))
+        want = twin(tm, y, P)
+        torch.cuda.synchronize()
+        if kname == "rhs":
+            err = _rate_rel(out, want, T, KK)
+            nb, fl = BIG_CHECK_B * (2 * N + 1) * 8, _rate_flops(tm, False)
+        elif kname == "rhs_jac":
+            err = max(_rate_rel(out[0], want[0], T, KK),
+                      _rate_rel(out[1], want[1], T, KK))
+            out, want = out[1], want[1]
+            nb, fl = BIG_CHECK_B * (2 * N + 1 + N * N) * 8, \
+                _rate_flops(tm, True)
+        else:
+            err = float(((out - want).abs() / want.abs()).max())
+            nb, fl = BIG_CHECK_B * (N + 2) * 8, _rate_flops(tm, True)
+        assert err <= (1e-12 if kname == "rhs" else 1e-11), \
+            f"{name} vs twin {err:.3e}"
+        ms = _time_ms(lambda: fn(tm, y, P), max(reps // 4, 2))
+        pms = _time_ms(lambda: twin(tm, y, P), 2)
+        bms, by = _bound_ms(nb + mech_b, BIG_CHECK_B * fl)
+        rows.append(_row(name, src, rep, home="big_checks",
+                         mech=f"grisyn x{BIG_COPIES}", batch=BIG_CHECK_B,
+                         max_abs_err=float((out - want).abs().max()),
+                         scale_rel_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=None,
+                         workspace_bytes=kernels.WORKSPACE_BYTES.get(name)))
+        _print_row(rows[-1])
+    # K5 GM: one round against the twin
+    lanes, events, s0 = _sweep_start(tm, "CONP", P_ATM, BIG_CHECK_B, 0.05,
+                                     reactors.IGN_T_INFLECTION)
+    sk, st, pms, stats = _k5_vs_twin(tm, "CONP", lanes, events, s0, 0,
+                                     gm=True)
+    ms = _k5_ms(tm, lanes, s0, 2, event_mode=0, problem="CONP")
+    att, newton = stats["totals"]["attempts"][0], stats["totals"]["newton"][0]
+    bms, by, per_call = _k5_bound(tm, "CONP", 1, BIG_CHECK_B, BIG_CHECK_B,
+                                  att, newton)
+    name5 = kernels.launch_name("sdirk_round", xk=kernels.extended(tm),
+                                gm=True)
+    rows.append(_row(name5, "sdirk_round.cuh", "ops/odeint.py:451 "
+                     "(_segment_fns; :322, :355, :377, :787)",
+                     home="big_sweep", mech=f"grisyn x{BIG_COPIES}",
+                     max_abs_err=float((sk.y - st.y).abs().max()),
+                     scale_rel_err=max(stats["rel_err"].values()), ms=ms,
+                     plain_ms=pms, bound_ms=bms, bound_by=by,
+                     per_call_bound_sum_ms=per_call, library_ms=None,
+                     batch=BIG_CHECK_B, attempts=K5_ATTEMPTS,
+                     workspace_bytes=kernels.WORKSPACE_BYTES.get(name5),
+                     **stats))
+    _print_row(rows[-1])
+    launches["big_checks"] = dict(kernels.LAUNCHES)
+    # K7 GM from K6's guess, against the twin
+    f64 = dict(dtype=torch.float64, device="cuda")
+    Y_in = torch.tensor(np.tile(_stoich_Y(tm), (BIG_PSR_B, 1)), **f64)
+    T_in = torch.full((BIG_PSR_B,), 800.0, **f64)
+    tau = torch.tensor(np.geomspace(1e-2, 1.0, BIG_PSR_B), **f64)
+    with torch.inference_mode():
+        h_in = thermo.mixture_enthalpy_mass(tm, T_in, Y_in)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    g = ptt.equilibrate(tm, T_in, PSR_P, Y_in, option=5, device="cuda")
+    sol = ptt.solve_psr(tm, "tau", "ENRG", P=PSR_P, Y_in=Y_in, h_in=h_in,
+                        T_guess=g.T, Y_guess=g.Y, tau=tau, mdot=PSR_MDOT,
+                        device="cuda")
+    torch.cuda.synchronize()
+    wall_psr = time.perf_counter() - t0
+    launches["big_psr"] = dict(kernels.LAUNCHES)
+    name7 = kernels.launch_name("psr_solve", xk=kernels.extended(tm), gm=True)
+    assert launches["big_psr"][name7] > 0 and \
+        launches["big_psr"]["equil_solve"] > 0, launches["big_psr"]
+    args = psr.PSRArgs(P=torch.full_like(T_in, PSR_P), Y_in=Y_in, h_in=h_in,
+                       tau=tau, volume=torch.zeros_like(T_in),
+                       mdot=torch.full_like(T_in, PSR_MDOT),
+                       qloss=torch.zeros_like(T_in),
+                       T_fixed=torch.zeros_like(T_in))
+    y0 = torch.cat([g.Y, g.T[:, None]], 1).contiguous()
+    ctl = psr.PSRControls()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    kernels.psr_solve(tm, "tau", "ENRG", args, y0, ctl)
+    ev1.record()
+    torch.cuda.synchronize()
+    ms7 = ev0.elapsed_time(ev1)
+    row7 = _row(name7, "psr_solve.cuh", "ops/psr.py:273 (solve_psr; "
+                ":148, :225)", home="big_psr", mech=f"grisyn x{BIG_COPIES}",
+                ms=ms7, **dict(zip(("bound_ms", "bound_by"),
+                                   _bound_ms(*_psr_work(tm, sol)))),
+                library_ms=None, batch=BIG_PSR_B,
+                workspace_bytes=kernels.WORKSPACE_BYTES.get(name7))
+    rows.append(row7)
+    kern = {f: getattr(sol, f).cpu() for f in sol._fields}
+
+    def check7(res, seconds):
+        q = psr.PSRSolution(**{f: torch.as_tensor(v) for f, v in res.items()})
+        k = psr.PSRSolution(**kern)
+        cmp = _compare_psr(f"K7 GM x{BIG_COPIES}", k, q, lambda lanes: [],
+                           MAP_TOL)
+        ok = (k.status == 0) & (q.status == 0)
+        print(f"K7 GM x{BIG_COPIES} B={BIG_PSR_B}: {wall_psr:.3f} s with the "
+              f"K6 guess; status {status_counts(k.status.numpy())}; against "
+              f"the twin ({seconds:.1f} s on the CPU) {cmp}", flush=True)
+        assert cmp["ok_both"] > 0, cmp
+        row7.update(max_abs_err=float((k.T - q.T).abs()[ok].max())
+                    if bool(ok.any()) else 0.0, scale_rel_err=cmp["err_T"],
+                    plain_ms=seconds * 1e3, plain_on="cpu")
+        _print_row(row7)
+    _defer_twin(("psr", _mech_spec(tm), "tau", "ENRG",
+                 tuple(a.cpu().numpy() for a in args), y0.cpu().numpy(),
+                 None, None, None), check7)
+    # a BIG_B sweep through K1 and K5 GM
+    T0 = np.linspace(1000.0, 1400.0, BIG_B)
+    Y0 = np.zeros((BIG_B, KK))
+    Y0[:] = _stoich_Y(tm)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    times, ok_s, status, prof = reactors.ignition_delay_sweep(
+        tm, "CONP", "ENRG", T0, P_ATM, Y0, 0.05, device="cuda", profile=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["big_sweep"] = dict(kernels.LAUNCHES)
+    stc = status.cpu().numpy()
+    att = prof["n_steps"] + prof["n_rejected"]
+    ws = {k: v for k, v in kernels.WORKSPACE_BYTES.items()}
+    print(f"sweep grisyn x{BIG_COPIES} CONP/ENRG B={BIG_B}: wall {wall:.3f} "
+          f"s, {BIG_B / wall:.2f} ignitions/s, attempts {int(att.sum())} "
+          f"(max {int(att.max())}), Newton {int(prof['n_newton'].sum())}, "
+          f"status {status_counts(stc)}; workspace bytes {ws}; launches "
+          f"{ {k: v for k, v in launches['big_sweep'].items() if v} }",
+          flush=True)
+    lb = launches["big_sweep"]
+    assert lb[name5] > 0 and lb[kernels.launch_name(
+        "rhs", xk=kernels.extended(tm), gm=True)] > 0, lb
+    assert lb[kernels.launch_name("sdirk_round", xk=kernels.extended(tm))] \
+        == 0, lb
+    assert (stc == int(SolveStatus.OK)).all(), status_counts(stc)
+    assert bool(ok_s.all()) and np.isfinite(times.cpu().numpy()).all()
+    return launches, dict(storage=storage, limit=limit, sweep_wall_s=wall,
+                          sweep_ignitions_per_s=BIG_B / wall,
+                          sweep_attempts=int(att.sum()),
+                          workspace_bytes=ws, psr_wall_s=wall_psr), rows
+
+
 #: ptxas's mangled kernel names -> kernels.LAUNCHES names
 _CODES = ("CONP", "CONV", "CONP_TGIV", "CONV_TGIV")
 
@@ -2340,26 +3110,32 @@ _CODES = ("CONP", "CONV", "CONP_TGIV", "CONV_TGIV")
 def _launch_name_of(mangled):
     import re
     from pychemkin_tpu_torch.kernels import launch_name
-    m = re.search(r"chem_kernelILb([01])ELi(\d)ELb([01])E", mangled)
+    b = r"ELb([01])"
+    m = re.search(r"chem_kernelILb([01])ELi(\d)" + 3 * b + "E", mangled)
     if m:
         return launch_name("rhs_jac" if m.group(1) == "1" else "rhs",
-                           _CODES[int(m.group(2))], xk=m.group(3) == "1")
-    m = re.search(r"sdirk_round_kernelILi(\d)ELb([01])ELb([01])ELb([01])E",
-                  mangled)
+                           _CODES[int(m.group(2))], xk=m.group(3) == "1",
+                           prf=m.group(4) == "1", gm=m.group(5) == "1")
+    m = re.search(r"sdirk_round_kernelILi(\d)" + 5 * b + "E", mangled)
     if m:
         return launch_name("sdirk_round", _CODES[int(m.group(1))],
                            m.group(2) == "1", m.group(3) == "1",
-                           m.group(4) == "1")
-    m = re.search(r"gershgorin_kernelILi(\d)ELb([01])E", mangled)
+                           m.group(4) == "1", prf=m.group(5) == "1",
+                           gm=m.group(6) == "1")
+    m = re.search(r"gershgorin_kernelILi(\d)" + 2 * b + "E", mangled)
     if m:
         return launch_name("gershgorin_rate", _CODES[int(m.group(1))],
-                           xk=m.group(2) == "1")
-    m = re.search(r"psr_kernelILb([01])E", mangled)
+                           xk=m.group(2) == "1", gm=m.group(3) == "1")
+    m = re.search(r"psr_kernelILb([01])" + 2 * b + "E", mangled)
     if m:
-        return launch_name("psr_solve", xk=m.group(1) == "1")
+        return launch_name("psr_solve", xk=m.group(1) == "1",
+                           fault=m.group(2) == "1", gm=m.group(3) == "1")
+    m = re.search(r"equil_kernelILb([01])" + b + "E", mangled)
+    if m:
+        return launch_name("equil_solve", fault=m.group(1) == "1",
+                           gm=m.group(2) == "1")
     for key, name in (("bordered_factor", "bordered_factor"),
-                      ("bordered_solve", "bordered_solve"),
-                      ("equil_kernel", "equil_solve")):
+                      ("bordered_solve", "bordered_solve")):
         if key in mangled:
             return name
     return None
@@ -2395,9 +3171,12 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--t-end", type=float, default=0.05)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--phases", choices=("all", "7"), default="all",
+    ap.add_argument("--phases", choices=("all", "7", "7f", "8", "9"),
+                    default="all",
                     help="'7': the build, phase 3's CONP sweep (7e's "
-                    "reference) and phase 7 only, for a quick check")
+                    "reference) and phase 7 only, for a quick check; '7f', "
+                    "'8', '9': the build and that phase only (8 with phase "
+                    "3's CONP sweep, its bitwise reference)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -2416,7 +3195,7 @@ def main(argv=None):
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({build.BUILD_INFO.get('path')})", flush=True)
     ptxas = {_launch_name_of(fn): info for fn, info in _build_report().items()
-             if "registers" in info}
+             if "registers" in info and _launch_name_of(fn)}
     for name, info in sorted(ptxas.items()):
         print(f"  ptxas {name}: {info}", flush=True)
     for line in build.BUILD_INFO.get("log", "").splitlines():
@@ -2432,32 +3211,68 @@ def main(argv=None):
            "ch4global": TorchMechanism(load_embedded("ch4global"), "cuda"),
            "h2o2_plog": TorchMechanism(
                load_mechanism_from_strings(h2o2_plog_text()), "cuda")}
-    if args.phases == "all":
+    phase = args.phases
+    if phase == "all":
         rows, launches, summaries, sweeps6, rescue, map_summary, steady, base = \
             phases_2_to_6(tm, tm_h, tms, B, reps, args.t_end)
     else:
         rows, launches, summaries, sweeps6 = [], {}, [], []
-        rescue = map_summary = steady = None
-        _, _, base = sweep_phase(tm, "CONP", P_ATM, B, args.t_end,
-                                 host_loop=False)
+        rescue = map_summary = steady = base = None
+        if phase in ("7", "8"):
+            runs, summary, base = sweep_phase(tm, "CONP", P_ATM, B,
+                                              args.t_end, host_loop=False)
+            summaries.append(summary)
+            launches.update(runs)
 
-    # phase 7
-    t7 = time.perf_counter()
-    with torch.inference_mode():
-        k8_rows, runs = check_k8(tms, B, max(reps // 4, 2))
-    rows.extend(k8_rows)
-    launches.update(runs)
-    print(f"phase 7a: {time.perf_counter() - t7:.1f} s", flush=True)
     serving = {}
-    for key, fn, fargs in (("grisyn", serve_phase, (tm,)),
-                           ("h2o2_psr", serve_psr_phase, (tm_h,)),
-                           ("fault", fault_phase, (tm,)),
-                           ("compacted", compacted_phase,
-                            (tm, B, args.t_end, base))):
-        runs, serving[key] = fn(*fargs)
+    if phase in ("all", "7"):
+        t7 = time.perf_counter()
+        with torch.inference_mode():
+            k8_rows, runs = check_k8(tms, B, max(reps // 4, 2))
+        rows.extend(k8_rows)
         launches.update(runs)
-    print(f"phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
+        print(f"phase 7a: {time.perf_counter() - t7:.1f} s", flush=True)
+        for key, fn, fargs in (("grisyn", serve_phase, (tm,)),
+                               ("h2o2_psr", serve_psr_phase, (tm_h,)),
+                               ("fault", fault_phase, (tm,)),
+                               ("compacted", compacted_phase,
+                                (tm, B, args.t_end, base))):
+            runs, serving[key] = fn(*fargs)
+            launches.update(runs)
+        print(f"phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
+    if phase in ("all", "7f"):
+        t7 = time.perf_counter()
+        runs, serving["steady_faults"], f_rows = steady_fault_phase(
+            tm, tm_h, max(reps // 4, 2))
+        launches.update(runs)
+        rows.extend(f_rows)
+        print(f"phase 7f: {time.perf_counter() - t7:.1f} s", flush=True)
+    batch = None
+    if phase in ("all", "8"):
+        t8 = time.perf_counter()
+        from pychemkin_tpu_torch.ops.reactors import variant
+        reference = {}
+        for s in summaries + sweeps6:
+            if s.get("mech") == "grisyn" and "energy" in s:
+                reference.setdefault(variant(s["problem"], s["energy"]), s)
+        runs, batch, b_rows = solve_batch_phase(tm, B, base, reference,
+                                                max(reps // 4, 2), args.t_end)
+        launches.update(runs)
+        rows.extend(b_rows)
+        print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+    big = None
+    if phase in ("all", "9"):
+        t9 = time.perf_counter()
+        cases = _port_cases()
+        tm_big = TorchMechanism(load_mechanism_from_strings(
+            cases.synthetic_mechanism_text(BIG_COPIES)), "cuda")
+        runs, big, g_rows = large_mech_phase(tm_big, reps)
+        launches.update(runs)
+        rows.extend(g_rows)
+        print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
 
+    twin_wall = run_twin_jobs()
+    print(f"twin reruns: {twin_wall:.1f} s in parallel processes", flush=True)
     for row in rows:
         row["launches"] = launches[row["home"]][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]]
@@ -2468,12 +3283,15 @@ def main(argv=None):
             f"{row['name']} ({row['mech']}) not launched on {row['home']}"
     unchecked = sorted(n for c in launches.values() for n, v in c.items()
                        if v and n not in {r["name"] for r in rows})
-    assert args.phases != "all" or not unchecked, \
+    assert phase != "all" or not unchecked, \
         f"launched without a check: {unchecked}"
     smi = _nvidia_smi()
     print(json.dumps({"sweeps": summaries, "sweeps_phase6": sweeps6,
                       "rescue": rescue, "psr_map": map_summary,
                       "steady_checks": steady, "serving": serving,
+                      "solve_batch": batch, "large_mechanism": big,
+                      "twin_checks": _TWIN_RESULTS, "twin_wall_s": twin_wall,
+                      "build_s": build.BUILD_INFO.get("seconds"),
                       "card": smi,
                       "script_s": time.perf_counter() - t_start}),
           flush=True)

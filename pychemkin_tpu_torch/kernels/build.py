@@ -33,7 +33,8 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 #: fused multiply-add, which rounds once where the reference and the
 #: plain twins round twice
 FILE_FLAGS = {"equilibrium.cu": ["-fmad=false"],
-              "psr_solve.cu": ["-fmad=false"]}
+              "psr_solve.cu": ["-fmad=false"],
+              "psr_solve_gm.cu": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -125,19 +126,26 @@ def build() -> str:
 def _bind(lib):
     P = ctypes.c_void_p
     I = ctypes.c_int
-    lib.chem_rhs.argtypes = [P, P, P, P, I, I, P]
-    lib.chem_rhs_jac.argtypes = [P, P, P, P, P, I, I, P]
-    lib.chem_bordered_factor.argtypes = [P, P, P, P, P, P, I, I, P]
+    lib.chem_rhs.argtypes = [P, P, P, P, I, I, P, P, P, P]
+    lib.chem_rhs_jac.argtypes = [P, P, P, P, P, I, I, P, P, P, P]
+    lib.chem_bordered_factor.argtypes = [P, P, P, P, P, P, I, I, I, P]
     lib.chem_bordered_solve.argtypes = [P, P, P, P, P, P, I, I, P]
-    lib.chem_sdirk_round.argtypes = [P, P, I, I, I, P]
-    lib.chem_equil_solve.argtypes = [P, P, I, P]
+    lib.chem_sdirk_round.argtypes = [P, P, I, I, I, I, P]
+    lib.chem_equil_solve.argtypes = [P, P, I, I, P]
     lib.chem_psr_solve.argtypes = [P, P, I, P]
-    lib.chem_gershgorin.argtypes = [P, P, P, P, I, I, P]
+    lib.chem_gershgorin.argtypes = [P, P, P, P, I, I, P, P]
+    lib.chem_smem_optin.argtypes = [I, ctypes.POINTER(I)]
     for fn in (lib.chem_rhs, lib.chem_rhs_jac, lib.chem_bordered_factor,
                lib.chem_bordered_solve, lib.chem_sdirk_round,
                lib.chem_equil_solve, lib.chem_psr_solve,
-               lib.chem_gershgorin):
+               lib.chem_gershgorin, lib.chem_smem_optin):
         fn.restype = ctypes.c_int
+    lib.chem_lane_doubles.argtypes = [P, I, I]
+    lib.chem_psr_lane_doubles.argtypes = [P]
+    lib.chem_equil_lane_doubles.argtypes = [P]
+    for fn in (lib.chem_lane_doubles, lib.chem_psr_lane_doubles,
+               lib.chem_equil_lane_doubles):
+        fn.restype = ctypes.c_longlong
     return lib
 
 

@@ -18,6 +18,10 @@
 
 namespace {
 
+// MEM: the solve for any n, swept in x (linalg.cuh
+// bordered_solve_warp_mem), where the register form's 32 * SOLVE_MAXR rows
+// do not reach.
+template <bool MEM>
 __global__ void bordered_solve_kernel(const double* __restrict__ lu,
                                       const double* __restrict__ v,
                                       const double* __restrict__ c,
@@ -28,9 +32,14 @@ __global__ void bordered_solve_kernel(const double* __restrict__ lu,
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b >= B) return;  // a whole warp leaves together
   const int n = N - 1;
-  chem::bordered_solve_warp(lu + (size_t)b * n * n, v + (size_t)b * n,
-                            c + (size_t)b * n, dsch[b], r + (size_t)b * N,
-                            x + (size_t)b * N, n, lane);
+  if constexpr (MEM)
+    chem::bordered_solve_warp_mem(lu + (size_t)b * n * n, v + (size_t)b * n,
+                                  c + (size_t)b * n, dsch[b], r + (size_t)b * N,
+                                  x + (size_t)b * N, n, lane);
+  else
+    chem::bordered_solve_warp(lu + (size_t)b * n * n, v + (size_t)b * n,
+                              c + (size_t)b * n, dsch[b], r + (size_t)b * N,
+                              x + (size_t)b * N, n, lane);
 }
 
 }  // namespace
@@ -40,9 +49,11 @@ extern "C" int chem_bordered_solve(const double* lu, const double* v,
                                    const double* r, double* x, int B, int N,
                                    void* stream) {
   if (B <= 0) return 0;
-  if (N - 1 > 32 * chem::SOLVE_MAXR) return (int)cudaErrorInvalidValue;
   const int warps = 4;
   const int blocks = (B + warps - 1) / warps;
-  CHEM_LAUNCH(blocks, 32 * warps, 0, stream, bordered_solve_kernel)(lu, v, c, dsch, r, x, B, N);
+  if (N - 1 > 32 * chem::SOLVE_MAXR)
+    CHEM_LAUNCH(blocks, 32 * warps, 0, stream, bordered_solve_kernel<true>)(lu, v, c, dsch, r, x, B, N);
+  else
+    CHEM_LAUNCH(blocks, 32 * warps, 0, stream, bordered_solve_kernel<false>)(lu, v, c, dsch, r, x, B, N);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,15 @@
 // pressure), CONV or CONV_TGIV (its density), with the energy equation or
 // at the given temperature (the state's T entry, held by a zero rate).
 //
+// PRF (the solve_batch reactors, ops/reactors.py BatchArgs) reads the
+// lane's constraint value, its slope, the given temperature and the
+// heat-loss terms from piecewise-linear profiles at the lane's time
+// (ProfileView, LaneTerms); without PRF the body is the constant-profile
+// one of the ignition sweep. GM (a mechanism whose lane does not fit in
+// the card's opt-in shared memory) points the same layout at a per-lane
+// slice of a device-memory workspace instead of the block's dynamic
+// shared memory.
+//
 // Defining CHEM_EMU before the include compiles the device code as host
 // C++ (a harness then supplies the CUDA built-ins and runs each block's
 // threads on the CPU).
@@ -104,6 +113,20 @@ struct MechView {
   int KK, II, n_fo, n_tb, n_rev, MM, n_plog, plog_L, plog_Tm, any_frac;
 };
 
+// Piecewise-linear profiles of the solve_batch reactors (ops/reactors.py
+// BatchArgs): the constraint (P(t) for the CONP codes, V(t) for the CONV
+// codes), T(t) (TGIV), the heat-loss rate and the heat-transfer area, each
+// as knots x and values y of n points whose rows advance by the given
+// stride per lane (0: one profile shared by every lane); and the lanes'
+// mass, wall heat-transfer coefficient and ambient temperature [B].
+// kernels/__init__.py builds the same layout with ctypes.
+struct ProfileView {
+  const double *cx, *cy, *tx, *ty, *qx, *qy, *ax, *ay;
+  const double *mass, *htc, *tamb;
+  int cn, tn, qn, an;
+  int cxs, cys, txs, tys, qxs, qys, axs, ays;
+};
+
 // max(a, b) and min(a, b) that keep a NaN of either argument
 // (jnp.maximum / torch.clamp semantics)
 __device__ __forceinline__ double maxp(double a, double b) {
@@ -149,6 +172,68 @@ __device__ __forceinline__ double arrhenius_dT(double A, double b, double E,
                                                double T, double lnT,
                                                double k) {
   return k * (b / T + E / (T * T)) * ind(arr_arg(A, b, E, T, lnT));
+}
+
+// Value and slope of the piecewise-linear profile (x, y) of n >= 2 knots
+// at t (ops/reactors.py:profile_value_slope): the segment of
+// searchsorted(x, t, side="right") - 1 clipped to [0, n - 2], the value
+// clipped to the segment's range, flat outside the knots with slope 0
+// there.
+__device__ inline void profile_at(const double* x, const double* y, int n,
+                                  double t, double* val, double* slope) {
+  int cnt = 0;
+  for (int j = 0; j < n; ++j) cnt += x[j] <= t ? 1 : 0;
+  int i = cnt - 1;
+  i = i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
+  const double x0 = x[i], x1 = x[i + 1], y0 = y[i], y1 = y[i + 1];
+  const double dx = maxp(x1 - x0, 1e-300);
+  const double s = (y1 - y0) / dx;
+  const bool inside = t >= x[0] && t <= x[n - 1];
+  double v = minp(maxp(y0 + s * (t - x0), minp(y0, y1)), maxp(y0, y1));
+  v = t < x[0] ? y[0] : (t > x[n - 1] ? y[n - 1] : v);
+  *val = v;
+  *slope = inside ? s : 0.0;
+}
+
+// The profile terms of one lane at time t: c the constraint value the lane
+// body takes (P(t) for the CONP codes; rho = mass / V(t) for the CONV
+// codes), cdot dP/dt or dV/dt, T and dT/dt of the TGIV profile, the
+// heat-loss rate ql and area ar, and the lane's mass, htc and tamb.
+struct LaneTerms {
+  double c, cdot, T, Tdot, ql, ar, mass, htc, tamb;
+};
+
+template <int PROB>
+__device__ inline LaneTerms lane_terms(const ProfileView& p, int b,
+                                       double t) {
+  LaneTerms L;
+  double v, s;
+  profile_at(p.cx + (size_t)b * p.cxs, p.cy + (size_t)b * p.cys, p.cn, t,
+             &v, &s);
+  L.mass = p.mass[b];
+  L.c = conp_like(PROB) ? v : L.mass / v;
+  L.cdot = s;
+  L.T = L.Tdot = L.ql = L.ar = L.htc = L.tamb = 0.0;
+  if (tgiv(PROB)) {
+    profile_at(p.tx + (size_t)b * p.txs, p.ty + (size_t)b * p.tys, p.tn, t,
+               &L.T, &L.Tdot);
+  } else {
+    profile_at(p.qx + (size_t)b * p.qxs, p.qy + (size_t)b * p.qys, p.qn, t,
+               &L.ql, &s);
+    profile_at(p.ax + (size_t)b * p.axs, p.ay + (size_t)b * p.ays, p.an, t,
+               &L.ar, &s);
+    L.htc = p.htc[b];
+    L.tamb = p.tamb[b];
+  }
+  return L;
+}
+
+// Wall heat gain per unit mass of the ENRG reactors at T
+// (ops/reactors.py:_heat_rate over the mass): (-qloss + htc area
+// (tamb - T)) / mass.
+__device__ __forceinline__ double heat_per_mass(const LaneTerms& L,
+                                                double T) {
+  return (-L.ql + L.htc * L.ar * (L.tamb - T)) / L.mass;
 }
 
 // Sum of v over the block; every thread gets the same value (the warp
@@ -358,6 +443,21 @@ __device__ __forceinline__ double heat_cap_R(double cp_R) {
   return conp_like(PROB) ? cp_R : cp_R - 1.0;
 }
 
+// dT/dt of the ENRG reactors with profiles (ops/reactors.py
+// conp_enrg_rhs, conv_enrg_rhs): (q + P'/rho - sum h w / rho) / cp at
+// constant pressure, (q - P V'/m - sum u w / rho) / cv at constant volume
+// with P = rho R T / Wbar; ``hw`` is sum_k e_k wdot_k, ``cp`` the mixture's
+// cp or cv, ``s_w`` sum Y/W.
+template <int PROB>
+__device__ __forceinline__ double prf_dTdt(const LaneTerms& L, double T,
+                                           double rho, double s_w, double hw,
+                                           double cp, double R) {
+  const double q = heat_per_mass(L, T);
+  if (conp_like(PROB)) return (q + L.cdot / rho - hw / rho) / cp;
+  const double P = rho * R * T / (1.0 / maxp(s_w, 1e-30));
+  return (q - P * L.cdot / L.mass - hw / rho) / cp;
+}
+
 // Sink of the lane's Jacobian entries: K2 stores J row-major in device
 // memory (K5 forms the Newton matrix from them instead, sdirk_round.cu).
 struct JacToGlobal {
@@ -379,9 +479,14 @@ struct JacToGlobal {
 // dP/dT = sum(C) R in the Jacobian). XK compiles the PLOG rows and the
 // fractional orders in; a mechanism with neither runs the XK=false body,
 // which is the lane body of the integer-order, PLOG-free kinetics alone.
-template <bool JAC, int PROB, bool XK, class Sink>
+// PRF adds the profile terms ``pt`` of the lane's time (``cval`` is then
+// pt->c): a TGIV lane's T and dT/dt are the profile's, and the energy
+// equation gains the wall heat, P'/rho (CONP) or -P V'/m (CONV) and their
+// derivatives, as the reference's RHS and _batch_jac_core write them.
+template <bool JAC, int PROB, bool XK, bool PRF = false, class Sink>
 __device__ void chem_lane(const MechView& m, const double* yb, double cval,
-                          double* sm, double* fb, const Sink& jac) {
+                          double* sm, double* fb, const Sink& jac,
+                          const LaneTerms* pt = nullptr) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int KK = m.KK, II = m.II, N = KK + 1;
   const double R = m.r_gas;
@@ -422,8 +527,9 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
   double* D = red + 32;
 
   const double Traw = yb[KK];
-  // TGIV: T is the profile's value, read without the floor
-  const double T = TG ? Traw : maxp(Traw, T_FLOOR);
+  // TGIV: T is the profile's value, read without the floor (without PRF
+  // the state's T entry holds it)
+  const double T = TG ? (PRF ? pt->T : Traw) : maxp(Traw, T_FLOOR);
   const double lnT = log(T);
   // CONV codes: P = sum(C) R T on the PLOG rows
   const bool p_from_c = XK && !CP && m.n_plog > 0;
@@ -440,6 +546,16 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
     s_w = block_sum(part, red);
     Wbar = 1.0 / maxp(s_w, 1e-30);
     rho = cval * Wbar / (R * T);
+  } else if (PRF && !TG) {
+    // CONV with the energy equation: P = rho R T / Wbar in the work term
+    double part = 0.0;
+    for (int k = tid; k < KK; k += nt) {
+      const double Yk = yb[k];
+      Yv[k] = Yk;
+      part += Yk * (1.0 / m.wt[k]);
+    }
+    s_w = block_sum(part, red);
+    rho = cval;
   } else {
     for (int k = tid; k < KK; k += nt) Yv[k] = yb[k];
     rho = cval;
@@ -625,7 +741,7 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
   if constexpr (!JAC) {
     if constexpr (TG) {
       for (int k = tid; k < KK; k += nt) fb[k] = wdot[k] * m.wt[k] / rho;
-      if (tid == 0) fb[KK] = 0.0;
+      if (tid == 0) fb[KK] = PRF ? pt->Tdot : 0.0;
     } else {
       double ph = 0.0, pc = 0.0;
       for (int k = tid; k < KK; k += nt) {
@@ -635,7 +751,10 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
       }
       const double hw = block_sum(ph, red);
       const double cp = block_sum(pc, red);
-      if (tid == 0) fb[KK] = (-hw / rho) / cp;
+      if (tid == 0) {
+        if constexpr (PRF) fb[KK] = prf_dTdt<PROB>(*pt, T, rho, s_w, hw, cp, R);
+        else fb[KK] = (-hw / rho) / cp;
+      }
     }
   } else {
     // dwdot/dC: one deterministic sum per entry over its triple segment,
@@ -703,7 +822,7 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
         jac(i, j, val);
       }
       for (int k = tid; k < KK; k += nt) fb[k] = wdot[k] * m.wt[k] / rho;
-      if (tid == 0) fb[KK] = 0.0;
+      if (tid == 0) fb[KK] = PRF ? pt->Tdot : 0.0;
       return;
     } else {
     double p_hw = 0.0, p_cp = 0.0, p_hdc = 0.0, p_cpw = 0.0, p_hdw = 0.0, p_dcp = 0.0;
@@ -727,9 +846,21 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
 
     const double i_s = s_w > 1e-30 ? 1.0 : 0.0;
     const double mT = Traw > T_FLOOR ? 1.0 : 0.0;
-    const double dTdt = (-hw / rho) / cp;
-    const double dN_dT = CP ? -(cpw + hdw) / rho - hw / (rho * T)
-                            : -(cpw + hdw) / rho;
+    double dTdt, dN_dT;
+    if constexpr (PRF) {
+      // _batch_jac_core's terms: dq/dT = -htc area / m, P'/(rho T) at
+      // constant pressure, -V'/m dP/dT (dP/dT = rho R sum(Y/W)) at
+      // constant volume
+      dTdt = prf_dTdt<PROB>(*pt, T, rho, s_w, hw, cp, R);
+      const double dq_dT = -pt->htc * pt->ar / pt->mass;
+      dN_dT = CP ? dq_dT + pt->cdot / (rho * T) - (cpw + hdw) / rho -
+                       hw / (rho * T)
+                 : dq_dT - pt->cdot / pt->mass * (rho * R * s_w * i_s) -
+                       (cpw + hdw) / rho;
+    } else {
+      dTdt = (-hw / rho) / cp;
+      dN_dT = CP ? -(cpw + hdw) / rho - hw / (rho * T) : -(cpw + hdw) / rho;
+    }
     const double J_TT = (dN_dT - dTdt * dcp_dT) / cp;
 
     for (int e = tid; e < N * N; e += nt) {
@@ -754,7 +885,12 @@ __device__ void chem_lane(const MechView& m, const double* yb, double cval,
         const double cpk = heat_cap_R<PROB>(cpr[j]) * R / m.wt[j];
         if (CP) {
           const double rw = Wbar / m.wt[j] * i_s;
-          const double dN_dY = (-hw + hDC) * rw / rho - hD[j] / m.wt[j];
+          const double dN_dY = PRF ? (pt->cdot - hw + hDC) * rw / rho - hD[j] / m.wt[j]
+                                   : (-hw + hDC) * rw / rho - hD[j] / m.wt[j];
+          val = dN_dY / cp - dTdt * cpk / cp;
+        } else if (PRF) {
+          const double dN_dY = -(pt->cdot / pt->mass) * rho * R * T * i_s / m.wt[j] -
+                               hD[j] / m.wt[j];
           val = dN_dY / cp - dTdt * cpk / cp;
         } else {
           val = (-hD[j] / m.wt[j]) / cp - dTdt * cpk / cp;
@@ -890,32 +1026,65 @@ __device__ double psr_shell(const MechView& m, const double* yb,
   return tau_c;
 }
 
+// Where a kernel keeps a lane's working set: the block's dynamic shared
+// memory, or (GM) the lane's slice of ``ws``, ``lane_doubles`` doubles a
+// lane, which the wrapper allocates for the launch's lanes.
+#define CHEM_LANE_BASE(GM, name, ws, b, lane_doubles)                    \
+  CHEM_DYN_SMEM(name##_smem);                                           \
+  double* name = GM ? (ws) + (size_t)(b) * (size_t)(lane_doubles)        \
+                    : name##_smem
+
+// The arguments of a K1/K2 launch beyond the mechanism: states, constraint
+// values (unused with PRF), outputs, the lanes' times and profiles (PRF),
+// the workspace (GM).
+struct ChemCall {
+  const double *y, *cval;
+  double *f, *J;
+  const double* t;
+  ProfileView prf;
+  double* ws;
+  int B, problem;
+  void* stream;
+};
+
 // K1 (JAC false) and K2 (JAC true): one block per lane.
-template <bool JAC, int PROB, bool XK>
+template <bool JAC, int PROB, bool XK, bool PRF, bool GM>
 __global__ void chem_kernel(MechView m, const double* __restrict__ y,
                             const double* __restrict__ cval,
                             double* __restrict__ f, double* __restrict__ J,
-                            int B) {
-  CHEM_DYN_SMEM(sm);
+                            int B, const double* __restrict__ t,
+                            ProfileView prf, double* ws) {
   const int b = blockIdx.x;
   if (b >= B) return;
+  CHEM_LANE_BASE(GM, sm, ws, b,
+                 lane_smem_doubles(m.KK, m.II, m.n_tb, m.n_plog, JAC));
   const int N = m.KK + 1;
-  chem_lane<JAC, PROB, XK>(m, y + (size_t)b * N, cval[b], sm, f + (size_t)b * N,
-                       JacToGlobal{J + (size_t)b * N * N, N});
+  LaneTerms lt;
+  double c;
+  if constexpr (PRF) {
+    lt = lane_terms<PROB>(prf, b, t[b]);
+    c = lt.c;
+  } else {
+    c = cval[b];
+  }
+  chem_lane<JAC, PROB, XK, PRF>(m, y + (size_t)b * N, c, sm, f + (size_t)b * N,
+                                JacToGlobal{J + (size_t)b * N * N, N},
+                                PRF ? &lt : nullptr);
 }
 
-template <bool JAC, int PROB, bool XK>
-inline int launch_chem_as(const MechView* m, const double* y,
-                          const double* cval, double* f, double* J, int B,
-                          void* stream) {
+template <bool JAC, int PROB, bool XK, bool PRF, bool GM>
+inline int launch_chem_as(const MechView* m, const ChemCall& c) {
   const int threads = 256;
-  const size_t smem = sizeof(double) *
+  const size_t smem = GM ? 0 : sizeof(double) *
       lane_smem_doubles(m->KK, m->II, m->n_tb, m->n_plog, JAC);
-  cudaError_t err = cudaFuncSetAttribute(chem_kernel<JAC, PROB, XK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  CHEM_LAUNCH(B, threads, smem, stream, chem_kernel<JAC, PROB, XK>)(*m, y, cval, f, J, B);
+  if (!GM) {
+    cudaError_t err = cudaFuncSetAttribute(
+        chem_kernel<JAC, PROB, XK, PRF, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  CHEM_LAUNCH(c.B, threads, smem, c.stream, chem_kernel<JAC, PROB, XK, PRF, GM>)(
+      *m, c.y, c.cval, c.f, c.J, c.B, c.t, c.prf, c.ws);
   return (int)cudaGetLastError();
 }
 
@@ -925,29 +1094,35 @@ __host__ __device__ inline bool extended(const MechView* m) {
   return m->n_plog > 0 || m->any_frac != 0;
 }
 
-template <bool JAC, bool XK>
-inline int launch_chem_xk(const MechView* m, const double* y,
-                          const double* cval, double* f, double* J, int B,
-                          int problem, void* stream) {
-  switch (problem) {
-    case CONP: return launch_chem_as<JAC, CONP, XK>(m, y, cval, f, J, B, stream);
-    case CONV: return launch_chem_as<JAC, CONV, XK>(m, y, cval, f, J, B, stream);
-    case CONP_TGIV: return launch_chem_as<JAC, CONP_TGIV, XK>(m, y, cval, f, J, B, stream);
-    case CONV_TGIV: return launch_chem_as<JAC, CONV_TGIV, XK>(m, y, cval, f, J, B, stream);
+template <bool JAC, bool XK, bool PRF, bool GM>
+inline int launch_chem_xk(const MechView* m, const ChemCall& c) {
+  switch (c.problem) {
+    case CONP: return launch_chem_as<JAC, CONP, XK, PRF, GM>(m, c);
+    case CONV: return launch_chem_as<JAC, CONV, XK, PRF, GM>(m, c);
+    case CONP_TGIV: return launch_chem_as<JAC, CONP_TGIV, XK, PRF, GM>(m, c);
+    case CONV_TGIV: return launch_chem_as<JAC, CONV_TGIV, XK, PRF, GM>(m, c);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Launch one chemistry kernel for ``problem`` (CONP, CONV, CONP_TGIV or
-// CONV_TGIV) with the mechanism's lane body: one block of 256 threads per
-// lane.
-template <bool JAC>
-inline int launch_chem(const MechView* m, const double* y, const double* cval,
-                       double* f, double* J, int B, int problem,
-                       void* stream) {
-  if (B <= 0) return 0;
-  return extended(m) ? launch_chem_xk<JAC, true>(m, y, cval, f, J, B, problem, stream)
-                     : launch_chem_xk<JAC, false>(m, y, cval, f, J, B, problem, stream);
+// Launch one chemistry kernel of the (PRF, GM) variant for ``problem``
+// (CONP, CONV, CONP_TGIV or CONV_TGIV) with the mechanism's lane body: one
+// block of 256 threads per lane. Each source file instantiates the
+// variants it launches (rhs.cu: K1's four; rhs_jac*.cu: one of K2's each).
+template <bool JAC, bool PRF, bool GM>
+inline int launch_chem(const MechView* m, const ChemCall& c) {
+  if (c.B <= 0) return 0;
+  if (GM && c.ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (PRF && c.t == nullptr) return (int)cudaErrorInvalidValue;
+  return extended(m) ? launch_chem_xk<JAC, true, PRF, GM>(m, c)
+                     : launch_chem_xk<JAC, false, PRF, GM>(m, c);
 }
+
+// K2's variants, one source file each (rhs_jac.cu, rhs_jac_prf.cu,
+// rhs_jac_gm.cu, rhs_jac_prf_gm.cu), so that nvcc builds them in parallel.
+int rhs_jac_launch(const MechView* m, const ChemCall& c);
+int rhs_jac_launch_prf(const MechView* m, const ChemCall& c);
+int rhs_jac_launch_gm(const MechView* m, const ChemCall& c);
+int rhs_jac_launch_prf_gm(const MechView* m, const ChemCall& c);
 
 }  // namespace chem

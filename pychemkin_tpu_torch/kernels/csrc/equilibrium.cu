@@ -29,6 +29,15 @@
 // is factored by rows across the warp and solved by lane 0. Control flow
 // is the same in every lane (fixed iteration counts), so warps never wait
 // on each other and a block needs no barrier.
+//
+// Storage follows the mechanism's size: a block holds as many lanes (1 to
+// EQ_WARPS) as the card's opt-in shared memory fits, and GM puts each
+// lane's arrays in its slice of a device-memory workspace where not even
+// one fits. FAULT reads a per-lane fault flag (the reference's
+// linalg_unstable injection, ops/equilibrium.py:269-272 ->
+// ops/linalg.py:479-487): on a flagged lane every Newton direction of the
+// fault-carrying solve is scaled by 1e8 after the residual check and the
+// solve reported unstable.
 #include "chem.cuh"
 
 // The lanes' initial states and the result fields, one row per lane;
@@ -38,6 +47,8 @@ struct EquilArgs {
   double *T_out, *P_out, *X, *Y_out, *nbar, *h, *u, *s, *v, *residual;
   unsigned char* converged;
   int* status;
+  const int* fault;   // [B] linalg_unstable flags (null: no fault active)
+  double* ws;         // GM: eq_lane_doubles per lane (null: shared memory)
   int option, n_iter;
 };
 
@@ -46,7 +57,7 @@ namespace {
 using chem::maxp;
 using chem::minp;
 
-constexpr int EQ_WARPS = 4;     // lanes (warps) per block
+constexpr int EQ_WARPS = 4;     // most lanes (warps) per block
 constexpr int EQ_MAX_N = 12;    // n = MM + 3
 constexpr double TINY = 1e-30;
 constexpr double X_FLOOR = 1e-35;
@@ -370,10 +381,12 @@ __device__ Props residual(const chem::MechView& m, const EqLane& L,
 }
 
 // ``iters`` damped Newton iterations on z (in L.z); returns the last
-// iteration's ``unstable`` (``unstable`` if there was none).
+// iteration's ``unstable`` (``unstable`` if there was none). ``flt``
+// (FAULT only): the lane's injected instability.
+template <bool FAULT>
 __device__ bool newton(const chem::MechView& m, const EqLane& L,
                        const System& sys, int iters, bool unstable,
-                       int lane) {
+                       int lane, bool flt) {
   const int MM = m.MM, n = MM + 3;
   const double lo_T = log(150.0), hi_T = log(6000.0);
   const double lo_P = log(1e-2), hi_P = log(1e12);
@@ -406,6 +419,14 @@ __device__ bool newton(const chem::MechView& m, const EqLane& L,
     }
     const double rn = sqrt(warp_sum(res)), bn = sqrt(warp_sum(bb));
     unstable = !(rn <= 1e-4 * bn + 1e-300);
+    if (FAULT && flt) {
+      // the injected unstable factor: the direction scaled far off after
+      // the residual check, and the flag forced
+      __syncwarp();
+      if (lane < n) L.x_s[lane] *= 1e8;
+      __syncwarp();
+      unstable = true;
+    }
     // damping
     double mxd = 0.0;
     for (int j = 0; j < n; ++j) {
@@ -437,10 +458,12 @@ struct Result {
 };
 
 // The reference's _solve for one lane: b in L.bvec, X_init in L.Xi; the
-// result's X and Y go to L.Xo and L.Yo.
+// result's X and Y go to L.Xo and L.Yo; ``flt`` as newton's.
+template <bool FAULT>
 __device__ Result solve(const chem::MechView& m, const EqLane& L, int c1,
                         int c2, double t1, double t2, double T_init,
-                        double P_init, int n_iter, int n_pre, int lane) {
+                        double P_init, int n_iter, int n_pre, int lane,
+                        bool flt) {
   const int KK = m.KK, MM = m.MM, n = MM + 3;
   double b_tot = 0.0;
   for (int e = 0; e < MM; ++e) b_tot += L.bvec[e];
@@ -487,10 +510,10 @@ __device__ Result solve(const chem::MechView& m, const EqLane& L, int c1,
 
   bool unstable = false;
   if (n_pre > 0 && !(c1 == CT && c2 == CP))
-    unstable = newton(m, L, System{CT, CP, exp(lnT0), P_init}, n_pre,
-                      unstable, lane);
+    unstable = newton<FAULT>(m, L, System{CT, CP, exp(lnT0), P_init}, n_pre,
+                             unstable, lane, flt);
   const System sys{c1, c2, t1, t2};
-  unstable = newton(m, L, sys, n_iter, unstable, lane);
+  unstable = newton<FAULT>(m, L, sys, n_iter, unstable, lane, flt);
 
   const Props p = residual<false>(m, L, sys, lane);
   double rr = 0.0;
@@ -539,14 +562,17 @@ __device__ Result solve(const chem::MechView& m, const EqLane& L, int c1,
 __constant__ int OPT_C1[10] = {0, CT, CT, CT, CP, CP, CP, CV, CV, CV};
 __constant__ int OPT_C2[10] = {0, CP, CV, CS, CV, CH, CS, CU, CH, CS};
 
+template <bool FAULT, bool GM>
 __global__ void __launch_bounds__(32 * EQ_WARPS)
 equil_kernel(chem::MechView m, EquilArgs a, int B) {
   CHEM_DYN_SMEM(sm);
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * EQ_WARPS + w;
+  const int b = blockIdx.x * (blockDim.x >> 5) + w;
   if (b >= B) return;   // the whole warp: lanes are warps
   const int KK = m.KK, MM = m.MM;
-  const EqLane L = eq_layout(sm + w * eq_lane_doubles(KK, MM), KK, MM);
+  const int per = eq_lane_doubles(KK, MM);
+  const EqLane L = eq_layout(GM ? a.ws + (size_t)b * per : sm + w * per, KK, MM);
+  const bool flt = FAULT && a.fault[b] != 0;
   const double R = m.r_gas;
   const double T = a.T[b], P = a.P[b];
   const double* Yb = a.Y + (size_t)b * KK;
@@ -599,7 +625,8 @@ equil_kernel(chem::MechView m, EquilArgs a, int B) {
     double lnTo = log(T_init), P_ws = P;
     for (int o = 0; o < NEST_OUTER; ++o) {
       const double Tn = exp(lnTo);
-      res = solve(m, L, CT, c1, Tn, mt, Tn, P_ws, NEST_INNER, NEST_PRE, lane);
+      res = solve<FAULT>(m, L, CT, c1, Tn, mt, Tn, P_ws, NEST_INNER, NEST_PRE,
+                         lane, false);
       const double cpm = maxp(res.cp_mix, TINY);
       const double dlnT = clipd((s_target - res.s) / cpm, -0.4, 0.4);
       lnTo = clipd(lnTo + dlnT, log(200.0), log(5800.0));
@@ -608,14 +635,15 @@ equil_kernel(chem::MechView m, EquilArgs a, int B) {
       __syncwarp();
     }
     const double Tf = exp(lnTo);
-    res = solve(m, L, CT, c1, Tf, mt, Tf, P_ws, NEST_FINAL, NEST_PRE, lane);
+    res = solve<FAULT>(m, L, CT, c1, Tf, mt, Tf, P_ws, NEST_FINAL, NEST_PRE,
+                       lane, flt);
     const double cpm = maxp(res.cp_mix, TINY);
     const bool s_ok = fabs(res.s - s_target) / cpm < 1e-7;
     if (res.status == ST_OK && !s_ok) res.status = ST_TOL_NOT_MET;
     res.converged = res.converged && s_ok;
   } else {
-    res = solve(m, L, c1, c2, targets[c1], targets[c2], T_init, P, a.n_iter,
-                N_PRE, lane);
+    res = solve<FAULT>(m, L, c1, c2, targets[c1], targets[c2], T_init, P,
+                       a.n_iter, N_PRE, lane, flt);
   }
 
   for (int k = lane; k < KK; k += 32) {
@@ -636,18 +664,44 @@ equil_kernel(chem::MechView m, EquilArgs a, int B) {
   }
 }
 
+
+template <bool FAULT, bool GM>
+int launch_equil(const chem::MechView* m, const EquilArgs* a, int B,
+                 int warps, void* stream) {
+  const size_t smem =
+      GM ? 0 : sizeof(double) * warps * eq_lane_doubles(m->KK, m->MM);
+  if (!GM) {
+    cudaError_t err = cudaFuncSetAttribute(
+        equil_kernel<FAULT, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = (B + warps - 1) / warps;
+  CHEM_LAUNCH(grid, 32 * warps, smem, stream, equil_kernel<FAULT, GM>)(*m, *a, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// ``warps``: lanes per block (1 to EQ_WARPS, the most whose arrays fit in
+// the card's shared memory); the GM variant where a->ws is not null, the
+// FAULT one where a->fault is not null.
 extern "C" int chem_equil_solve(const chem::MechView* m, const EquilArgs* a,
-                                int B, void* stream) {
+                                int B, int warps, void* stream) {
   if (B <= 0) return 0;
-  if (a->option < 1 || a->option > 9 || m->MM + 3 > EQ_MAX_N || m->KK > 128)
+  if (a->option < 1 || a->option > 9 || m->MM + 3 > EQ_MAX_N || warps < 1 ||
+      warps > EQ_WARPS)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(double) * EQ_WARPS * eq_lane_doubles(m->KK, m->MM);
-  cudaError_t err = cudaFuncSetAttribute(
-      equil_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + EQ_WARPS - 1) / EQ_WARPS;
-  CHEM_LAUNCH(grid, 32 * EQ_WARPS, smem, stream, equil_kernel)(*m, *a, B);
-  return (int)cudaGetLastError();
+  const bool fault = a->fault != nullptr;
+  if (a->ws)
+    return fault ? launch_equil<true, true>(m, a, B, warps, stream)
+                 : launch_equil<false, true>(m, a, B, warps, stream);
+  return fault ? launch_equil<true, false>(m, a, B, warps, stream)
+               : launch_equil<false, false>(m, a, B, warps, stream);
+}
+
+// Doubles of one K6 lane (one warp): its shared memory, or its GM
+// workspace.
+extern "C" long long chem_equil_lane_doubles(const chem::MechView* m) {
+  return eq_lane_doubles(m->KK, m->MM);
 }

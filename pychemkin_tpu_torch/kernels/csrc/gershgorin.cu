@@ -19,7 +19,9 @@
 // in ascending order, and the block maximum takes warp shuffles and one
 // pass over the warps' partials. No atomics: the result is deterministic,
 // and a NaN anywhere in J reaches the rate (maxp keeps NaN, as jnp.max
-// does).
+// does). GM puts the lane's working set (the lane body's, J, f and the
+// partials) in its slice of a device-memory workspace, for mechanisms too
+// large for shared memory.
 #include "chem.cuh"
 
 namespace {
@@ -39,14 +41,15 @@ __host__ __device__ inline int gershgorin_smem_doubles(const chem::MechView* m) 
          N * N + N + 32;
 }
 
-template <int PROB, bool XK>
+template <int PROB, bool XK, bool GM>
 __global__ void gershgorin_kernel(chem::MechView m,
                                   const double* __restrict__ y,
                                   const double* __restrict__ cval,
-                                  double* __restrict__ rate, int B) {
-  CHEM_DYN_SMEM(sm);
+                                  double* __restrict__ rate, int B,
+                                  double* ws) {
   const int b = blockIdx.x;
   if (b >= B) return;
+  CHEM_LANE_BASE(GM, sm, ws, b, gershgorin_smem_doubles(&m));
   const int N = m.KK + 1;
   double* Js = sm + chem::lane_smem_doubles(m.KK, m.II, m.n_tb, m.n_plog, true);
   double* fs = Js + N * N;
@@ -73,27 +76,32 @@ __global__ void gershgorin_kernel(chem::MechView m,
   }
 }
 
-template <int PROB, bool XK>
+template <int PROB, bool XK, bool GM>
 int launch_as(const chem::MechView* m, const double* y, const double* cval,
-              double* rate, int B, void* stream) {
+              double* rate, int B, double* ws, void* stream) {
   const int threads = 256;
-  const size_t smem = sizeof(double) * gershgorin_smem_doubles(m);
-  cudaError_t err = cudaFuncSetAttribute(gershgorin_kernel<PROB, XK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  CHEM_LAUNCH(B, threads, smem, stream, gershgorin_kernel<PROB, XK>)(*m, y, cval, rate, B);
+  const size_t smem = GM ? 0 : sizeof(double) * gershgorin_smem_doubles(m);
+  if (!GM) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gershgorin_kernel<PROB, XK, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  CHEM_LAUNCH(B, threads, smem, stream, gershgorin_kernel<PROB, XK, GM>)(
+      *m, y, cval, rate, B, ws);
   return (int)cudaGetLastError();
 }
 
-template <bool XK>
+template <bool XK, bool GM>
 int launch_xk(const chem::MechView* m, const double* y, const double* cval,
-              double* rate, int B, int problem, void* stream) {
+              double* rate, int B, int problem, double* ws, void* stream) {
   switch (problem) {
-    case chem::CONP: return launch_as<chem::CONP, XK>(m, y, cval, rate, B, stream);
-    case chem::CONV: return launch_as<chem::CONV, XK>(m, y, cval, rate, B, stream);
-    case chem::CONP_TGIV: return launch_as<chem::CONP_TGIV, XK>(m, y, cval, rate, B, stream);
-    case chem::CONV_TGIV: return launch_as<chem::CONV_TGIV, XK>(m, y, cval, rate, B, stream);
+    case chem::CONP: return launch_as<chem::CONP, XK, GM>(m, y, cval, rate, B, ws, stream);
+    case chem::CONV: return launch_as<chem::CONV, XK, GM>(m, y, cval, rate, B, ws, stream);
+    case chem::CONP_TGIV:
+      return launch_as<chem::CONP_TGIV, XK, GM>(m, y, cval, rate, B, ws, stream);
+    case chem::CONV_TGIV:
+      return launch_as<chem::CONV_TGIV, XK, GM>(m, y, cval, rate, B, ws, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -101,11 +109,16 @@ int launch_xk(const chem::MechView* m, const double* y, const double* cval,
 }  // namespace
 
 // ``problem``: the reactor code (chem.cuh); ``cval`` the lanes' pressure
-// (CONP codes) or density (CONV codes). One block of 256 threads a lane.
+// (CONP codes) or density (CONV codes); ``ws``: the workspace of the GM
+// variant (null: shared memory). One block of 256 threads a lane.
 extern "C" int chem_gershgorin(const chem::MechView* m, const double* y,
                                const double* cval, double* rate, int B,
-                               int problem, void* stream) {
+                               int problem, double* ws, void* stream) {
   if (B <= 0) return 0;
-  return chem::extended(m) ? launch_xk<true>(m, y, cval, rate, B, problem, stream)
-                           : launch_xk<false>(m, y, cval, rate, B, problem, stream);
+  const bool xk = chem::extended(m);
+  if (ws)
+    return xk ? launch_xk<true, true>(m, y, cval, rate, B, problem, ws, stream)
+              : launch_xk<false, true>(m, y, cval, rate, B, problem, ws, stream);
+  return xk ? launch_xk<true, false>(m, y, cval, rate, B, problem, ws, stream)
+            : launch_xk<false, false>(m, y, cval, rate, B, problem, ws, stream);
 }

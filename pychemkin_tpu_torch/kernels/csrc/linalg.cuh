@@ -127,6 +127,41 @@ __device__ inline void bordered_solve_warp(const double* __restrict__ L,
   if (lane == 0) xb[n] = xT;
 }
 
+// bordered_solve_warp for any n (the lanes of a mechanism too large for
+// K4's registers, KK > 32 * SOLVE_MAXR): the solution is swept in xb
+// itself, row i's entry updated by lane i % 32 in the same order of k as
+// the register form, with a warp barrier per step. All 32 threads of the
+// warp must call it; rb and xb must not overlap.
+__device__ inline void bordered_solve_warp_mem(const double* __restrict__ L,
+                                               const double* __restrict__ v,
+                                               const double* __restrict__ c,
+                                               double dsch,
+                                               const double* __restrict__ rb,
+                                               double* xb, int n, int lane,
+                                               const int* __restrict__ perm = nullptr) {
+  for (int i = lane; i < n; i += 32) xb[i] = rb[perm ? perm[i] : i];
+  __syncwarp();
+  for (int k = 0; k < n - 1; ++k) {
+    const double xk = xb[k];
+    for (int i = k + 1 + lane; i < n; i += 32) xb[i] -= L[(size_t)i * n + k] * xk;
+    __syncwarp();
+  }
+  for (int k = n - 1; k >= 0; --k) {
+    const double xk = xb[k] / clamp_diag(L[(size_t)k * n + k]);
+    __syncwarp();
+    if (lane == 0) xb[k] = xk;
+    for (int i = lane; i < k; i += 32) xb[i] -= L[(size_t)i * n + k] * xk;
+    __syncwarp();
+  }
+  double part = 0.0;
+  for (int i = lane; i < n; i += 32) part += c[i] * xb[i];
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(FULL_MASK, part, o);
+  const double xT = (rb[n] - part) / dsch;
+  for (int i = lane; i < n; i += 32) xb[i] = xb[i] - xT * v[i];
+  if (lane == 0) xb[n] = xT;
+  __syncwarp();
+}
+
 // Index of the row of largest |A[i][col]| over rows k <= i < n (the first
 // one on ties, LAPACK idamax's choice), by the whole block; the same in
 // every thread. rv and ri [32] are scratch.

@@ -15,10 +15,32 @@
 // entry summing its own jac_seg segment (deterministic, no atomics), and J
 // is written once, row-major and coalesced. K5 runs the same lane body
 // (chem::chem_lane<true, PROB>) with M = I - h gamma J as the sink.
+//
+// This file builds the constant-profile, shared-memory variant and the C
+// entry point; rhs_jac_prf.cu (profiles: the reference's _batch_jac_core
+// with its q, dq/dT, P'/(rho T), V' and TGIV T(t) terms,
+// ops/jacobian.py:585-700), rhs_jac_gm.cu (the lane in a device-memory
+// workspace) and rhs_jac_prf_gm.cu build the others.
 #include "chem.cuh"
 
+namespace chem {
+int rhs_jac_launch(const MechView* m, const ChemCall& c) {
+  return launch_chem<true, false, false>(m, c);
+}
+}  // namespace chem
+
+// ``t`` and ``prf``: the lanes' times and profiles (null: the constant
+// constraint values ``cval``); ``ws``: the workspace (null: shared memory).
 extern "C" int chem_rhs_jac(const chem::MechView* m, const double* y,
                             const double* cval, double* f, double* J, int B,
-                            int problem, void* stream) {
-  return chem::launch_chem<true>(m, y, cval, f, J, B, problem, stream);
+                            int problem, const double* t,
+                            const chem::ProfileView* prf, double* ws,
+                            void* stream) {
+  chem::ChemCall c{y, cval, f, J, t, prf ? *prf : chem::ProfileView{}, ws, B,
+                   problem, stream};
+  const bool p = prf != nullptr, g = ws != nullptr;
+  if (p && g) return chem::rhs_jac_launch_prf_gm(m, c);
+  if (p) return chem::rhs_jac_launch_prf(m, c);
+  if (g) return chem::rhs_jac_launch_gm(m, c);
+  return chem::rhs_jac_launch(m, c);
 }

@@ -1,13 +1,24 @@
 // K5 sdirk_round: up to max_attempts SDIRK3 step attempts per lane, the
 // whole attempt on the card: one launch is one round of the sweep. This
 // header holds the kernel template sdirk_round_kernel<PROB, PIVOT, FAULT,
-// XK>; sdirk_round.cu and sdirk_round_{xk,pivot,pivot_xk,fault,fault_xk,
-// pivot_fault,pivot_fault_xk}.cu each instantiate one (PIVOT, FAULT, XK)
-// triple for the four reactor codes, so that nvcc builds the 32
-// instantiations in eight parallel processes. XK (PLOG rows, fractional
-// orders: chem.cuh chem_lane) is on for the mechanisms that have them, so
-// every instantiation runs a mechanism without them on the body that
-// leaves them out.
+// XK, PRF, GM>; each sdirk_round*.cu instantiates one (PIVOT, FAULT, XK,
+// PRF, GM) tuple for the four reactor codes, so that nvcc builds the
+// instantiations in parallel processes: the eight (PIVOT, FAULT, XK) of
+// the ignition sweep and its rescue ladder, the same eight with GM, and
+// PRF with and without XK and GM. XK (PLOG rows, fractional orders:
+// chem.cuh chem_lane) is on for the mechanisms that have them, so every
+// instantiation runs a mechanism without them on the body that leaves
+// them out.
+//
+// PRF (solve_batch's reactors, ops/reactors.py:232 of the reference)
+// evaluates the lane's profiles at each RHS's time: the Jacobian at the
+// step's start t, the stages at the reference's t + c_s h. GM keeps the
+// lane's working set in its slice of a device-memory workspace (a
+// mechanism too large for the card's shared memory) and solves through
+// linalg.cuh bordered_solve_warp_mem, which takes any KK. The attempt
+// budget is per lane (``budget`` [B]): the sweep gives every lane
+// max_steps_per_segment, solve_batch's output grid gives each segment the
+// lane's attempts at its start plus that.
 //
 // Replaces the JAX package's ops/odeint.py:451 _segment_fns (the cond and
 // body of the step loop), :322 _newton_stage, :355 _quad_peak, :377
@@ -56,8 +67,9 @@
 // StepState), one row per lane; the state is read at the start of a launch
 // and written back in place at its end. ``fault``/``fault_t`` are the
 // per-lane fault bits and nan_rhs start times (null when no fault is
-// active); ``species`` is the Species_peak species. kernels/__init__.py
-// builds the same layout with ctypes.
+// active); ``budget`` the lanes' attempt caps; ``species`` the
+// Species_peak species; ``prf`` the profiles (PRF); ``ws`` the workspace
+// (GM). kernels/__init__.py builds the same layout with ctypes.
 struct SdirkArgs {
   const double *constraint, *atol, *t_end, *thresh;
   const int* fault;
@@ -68,9 +80,11 @@ struct SdirkArgs {
   unsigned char* stalled;
   int* status;
   double* dt_min;
+  const long long* budget;
+  double* ws;
   double rtol;
-  long long budget;
   int max_attempts, event_mode, species;
+  chem::ProfileView prf;
 };
 
 // Launch K5's (PIVOT, FAULT, XK) instantiation of ``problem``; each
@@ -87,6 +101,18 @@ CHEM_SDIRK_LAUNCHER(_fault);
 CHEM_SDIRK_LAUNCHER(_fault_xk);
 CHEM_SDIRK_LAUNCHER(_pivot_fault);
 CHEM_SDIRK_LAUNCHER(_pivot_fault_xk);
+CHEM_SDIRK_LAUNCHER(_gm);
+CHEM_SDIRK_LAUNCHER(_gm_xk);
+CHEM_SDIRK_LAUNCHER(_pivot_gm);
+CHEM_SDIRK_LAUNCHER(_pivot_gm_xk);
+CHEM_SDIRK_LAUNCHER(_fault_gm);
+CHEM_SDIRK_LAUNCHER(_fault_gm_xk);
+CHEM_SDIRK_LAUNCHER(_pivot_fault_gm);
+CHEM_SDIRK_LAUNCHER(_pivot_fault_gm_xk);
+CHEM_SDIRK_LAUNCHER(_prf);
+CHEM_SDIRK_LAUNCHER(_prf_xk);
+CHEM_SDIRK_LAUNCHER(_prf_gm);
+CHEM_SDIRK_LAUNCHER(_prf_gm_xk);
 
 namespace sdirk {
 
@@ -201,16 +227,20 @@ __device__ inline double warp_wrms(const double* x, const double* w, int N,
 
 // dz = M^-1 r on warp 0 and its norm over w into L.scal[1]; returns the
 // norm in every thread of the block. PIVOT: the factor is pivoted, with
-// row order ``perm``.
-template <bool PIVOT>
+// row order ``perm``. GM: the solve for any KK, swept in x.
+template <bool PIVOT, bool GM>
 __device__ inline double solve_and_norm(const Lane& L, const double* lu,
                                         double dsch, const double* r,
                                         double* x, const double* w, int n,
                                         const int* perm) {
   if ((threadIdx.x >> 5) == 0) {
     const int lane = threadIdx.x & 31;
-    chem::bordered_solve_warp(lu, L.v, L.c, dsch, r, x, n, lane,
-                              PIVOT ? perm : nullptr);
+    if constexpr (GM)
+      chem::bordered_solve_warp_mem(lu, L.v, L.c, dsch, r, x, n, lane,
+                                    PIVOT ? perm : nullptr);
+    else
+      chem::bordered_solve_warp(lu, L.v, L.c, dsch, r, x, n, lane,
+                                PIVOT ? perm : nullptr);
     __syncwarp();
     const double nrm = warp_wrms(x, w, n + 1, lane);
     if (lane == 0) L.scal[1] = nrm;
@@ -223,13 +253,14 @@ __device__ inline double solve_and_norm(const Lane& L, const double* lu,
 // z = h f(ybase + gamma z) from the z in shared memory (updated in place),
 // with the factored M. Returns the iterations; converged and diverged as
 // the reference's. ``poisoned`` (FAULT only): the lane's injected nan_rhs
-// fault is on at this stage's time (its RHS reads NaN).
-template <int PROB, bool PIVOT, bool FAULT, bool XK>
+// fault is on at this stage's time (its RHS reads NaN). PRF: ``lt`` holds
+// the profile terms at the stage's time and ``cval`` their constraint.
+template <int PROB, bool PIVOT, bool FAULT, bool XK, bool PRF, bool GM>
 __device__ int newton_stage(const chem::MechView& m, double cval, double* sm,
                             const Lane& L, const double* lu, double dsch,
                             const int* perm, const double* ybase, double* z,
                             double hh, bool poisoned, bool* converged,
-                            bool* diverged) {
+                            bool* diverged, const chem::LaneTerms* lt) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int n = m.KK, N = n + 1;
   bool conv = false, div = false;
@@ -238,15 +269,15 @@ __device__ int newton_stage(const chem::MechView& m, double cval, double* sm,
   while (true) {
     for (int i = tid; i < N; i += nt) L.ybuf[i] = ybase[i] + GAMMA * z[i];
     __syncthreads();
-    chem::chem_lane<false, PROB, XK>(m, L.ybuf, cval, sm, L.fbuf,
-                                 chem::JacToGlobal{nullptr, 0});
+    chem::chem_lane<false, PROB, XK, PRF>(m, L.ybuf, cval, sm, L.fbuf,
+                                      chem::JacToGlobal{nullptr, 0}, lt);
     __syncthreads();
     // a poisoned lane's residual is NaN (its RHS is); the expression
     // itself is the fault-free one, so other lanes round as without faults
     for (int i = tid; i < N; i += nt)
       L.r[i] = (FAULT && poisoned) ? (double)NAN : -(z[i] - hh * L.fbuf[i]);
     __syncthreads();
-    double dn = solve_and_norm<PIVOT>(L, lu, dsch, L.r, L.dz, L.w, n, perm);
+    double dn = solve_and_norm<PIVOT, GM>(L, lu, dsch, L.r, L.dz, L.w, n, perm);
     if (!isfinite(dn)) dn = INFINITY;
     const bool div_new = it > 0 && dn > 2.0 * prev_dn;
     const bool conv_new = dn < NEWTON_TOL;
@@ -291,19 +322,28 @@ __device__ inline void quad_peak(double t0, double t1, double t2, double g0,
 
 // The launch bounds of the instantiations of a source file: THREADS
 // threads a block, which left ptxas at 128 registers (two lanes an SM) for
-// the default body. The PIVOT and FAULT files ask for two blocks an SM
-// outright: with the threads alone ptxas gave the pivoted body 212
-// registers, so one lane an SM.
+// the default body. The PIVOT, FAULT, PRF and GM files ask for two blocks
+// an SM outright: with the threads alone ptxas gave the pivoted body 212
+// registers, the PRF body 222 and the GM body 250, so one lane an SM (a
+// PRF round then took 1.8x the default's, a 256-lane GM sweep 1.4x).
 #ifndef SDIRK_LAUNCH_BOUNDS
 #define SDIRK_LAUNCH_BOUNDS __launch_bounds__(THREADS)
 #endif
 
-template <int PROB, bool PIVOT, bool FAULT, bool XK>
+// Doubles of one lane's working set: chem_lane's with its D block, the
+// step's vectors and, with PIVOT, the row order.
+__host__ __device__ inline int sdirk_lane_doubles(const chem::MechView* m,
+                                                  bool pivot) {
+  return chem::lane_smem_doubles(m->KK, m->II, m->n_tb, m->n_plog, true) +
+         lane_extra_doubles(m->KK) + (pivot ? pivot_extra_doubles(m->KK) : 0);
+}
+
+template <int PROB, bool PIVOT, bool FAULT, bool XK, bool PRF, bool GM>
 __global__ void SDIRK_LAUNCH_BOUNDS
 sdirk_round_kernel(chem::MechView m, SdirkArgs a, int B) {
-  CHEM_DYN_SMEM(sm);
   const int b = blockIdx.x;
   if (b >= B) return;
+  CHEM_LANE_BASE(GM, sm, a.ws, b, sdirk_lane_doubles(&m, PIVOT));
   const int tid = threadIdx.x, nt = blockDim.x;
   const int n = m.KK, N = n + 1;
   double* D = sm + chem::lane_smem_doubles(n, m.II, m.n_tb,
@@ -319,7 +359,8 @@ sdirk_round_kernel(chem::MechView m, SdirkArgs a, int B) {
   long long n_steps = a.n_steps[b], n_rej = a.n_rejected[b];
   double t = a.t[b];
   bool stalled = a.stalled[b] != 0;
-  if (!(t < t_end && !stalled && n_steps + n_rej < a.budget)) return;
+  const long long budget = a.budget[b];
+  if (!(t < t_end && !stalled && n_steps + n_rej < budget)) return;
 
   const size_t bo = (size_t)b * N;
   for (int i = tid; i < N; i += nt) {
@@ -331,7 +372,8 @@ sdirk_round_kernel(chem::MechView m, SdirkArgs a, int B) {
   double acc_t = a.acc_t[b], acc_v = a.acc_v[b];
   long long n_newton = a.n_newton[b], consec = a.consec_rej[b];
   int status = a.status[b];
-  const double cval = a.constraint[b], thresh = a.thresh[b];
+  // PRF: the constraint comes from the profiles at each RHS's time
+  const double cval = PRF ? 0.0 : a.constraint[b], thresh = a.thresh[b];
   const double rtol = a.rtol;
   const int fault = FAULT ? a.fault[b] : 0;
   const double fault_t = FAULT ? a.fault_t[b] : 0.0;
@@ -339,7 +381,7 @@ sdirk_round_kernel(chem::MechView m, SdirkArgs a, int B) {
   __syncthreads();
 
   for (int k = 0; k < a.max_attempts; ++k) {
-    if (!(t < t_end && !stalled && n_steps + n_rej < a.budget)) break;
+    if (!(t < t_end && !stalled && n_steps + n_rej < budget)) break;
     // the lane is active (t < t_end): the step, clipped to the remainder
     const double remaining = maxp(t_end - t, dt_min);
     const double hh = minp(maxp(h, dt_min), remaining);
@@ -347,8 +389,11 @@ sdirk_round_kernel(chem::MechView m, SdirkArgs a, int B) {
     const double hg = hh * GAMMA;
 
     // M = I - hg J at y, factored in place
-    chem::chem_lane<true, PROB, XK>(m, L.y, cval, sm, L.fbuf,
-                                NewtonMatrixSink{D, L.v, L.c, L.scal, hg, n});
+    chem::LaneTerms lt;
+    if constexpr (PRF) lt = chem::lane_terms<PROB>(a.prf, b, t);
+    chem::chem_lane<true, PROB, XK, PRF>(
+        m, L.y, PRF ? lt.c : cval, sm, L.fbuf,
+        NewtonMatrixSink{D, L.v, L.c, L.scal, hg, n}, PRF ? &lt : nullptr);
     __syncthreads();
     const double dsch =
         PIVOT ? chem::bordered_factor_pivot_lane(D, perm, L.v, L.c, L.scal[0],
@@ -377,13 +422,14 @@ sdirk_round_kernel(chem::MechView m, SdirkArgs a, int B) {
       }
       __syncthreads();
       bool ok, dv;
-      // the reference's stage times t + c_s h; a nan_rhs fault is on from
-      // its t_min
-      const bool poisoned =
-          FAULT && (fault & FAULT_NAN) &&
-          (s == 0 ? t + GAMMA * hh : (s == 1 ? t + C2 * hh : t + hh)) >= fault_t;
-      n_it += newton_stage<PROB, PIVOT, FAULT, XK>(
-          m, cval, sm, L, D, dsch, perm, base, z, hh, poisoned, &ok, &dv);
+      // the reference's stage times t + c_s h: a nan_rhs fault is on from
+      // its t_min, and the profiles are read there
+      const double ts = s == 0 ? t + GAMMA * hh : (s == 1 ? t + C2 * hh : t + hh);
+      const bool poisoned = FAULT && (fault & FAULT_NAN) && ts >= fault_t;
+      if constexpr (PRF) lt = chem::lane_terms<PROB>(a.prf, b, ts);
+      n_it += newton_stage<PROB, PIVOT, FAULT, XK, PRF, GM>(
+          m, PRF ? lt.c : cval, sm, L, D, dsch, perm, base, z, hh, poisoned,
+          &ok, &dv, PRF ? &lt : nullptr);
       newton_ok = newton_ok && ok;
       newton_diverged = newton_diverged || dv;
       if (s == 1) y2T = L.ybase[n] + GAMMA * L.z2[n];
@@ -401,7 +447,7 @@ sdirk_round_kernel(chem::MechView m, SdirkArgs a, int B) {
     }
     const bool nonfinite = __syncthreads_or(bad) != 0;
     const double err =
-        solve_and_norm<PIVOT>(L, D, dsch, L.r, L.dz, L.w, n, perm);
+        solve_and_norm<PIVOT, GM>(L, D, dsch, L.r, L.dz, L.w, n, perm);
     if (FAULT && (fault & FAULT_STALL)) newton_ok = false;
     const bool finite = !nonfinite && isfinite(err);
     const bool accept = newton_ok && finite && err <= 1.0;
@@ -504,32 +550,34 @@ sdirk_round_kernel(chem::MechView m, SdirkArgs a, int B) {
   }
 }
 
-template <int PROB, bool PIVOT, bool FAULT, bool XK>
+template <int PROB, bool PIVOT, bool FAULT, bool XK, bool PRF, bool GM>
 int launch_sdirk_as(const chem::MechView* m, const SdirkArgs* a, int B,
                     void* stream) {
-  const size_t smem = sizeof(double) *
-      (chem::lane_smem_doubles(m->KK, m->II, m->n_tb, m->n_plog, true) +
-       lane_extra_doubles(m->KK) + (PIVOT ? pivot_extra_doubles(m->KK) : 0));
-  cudaError_t err = cudaFuncSetAttribute(
-      sdirk_round_kernel<PROB, PIVOT, FAULT, XK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const size_t smem = GM ? 0 : sizeof(double) * sdirk_lane_doubles(m, PIVOT);
+  if (!GM) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sdirk_round_kernel<PROB, PIVOT, FAULT, XK, PRF, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   CHEM_LAUNCH(B, THREADS, smem, stream,
-              sdirk_round_kernel<PROB, PIVOT, FAULT, XK>)(*m, *a, B);
+              sdirk_round_kernel<PROB, PIVOT, FAULT, XK, PRF, GM>)(*m, *a, B);
   return (int)cudaGetLastError();
 }
 
-// The (PIVOT, FAULT, XK) instantiation of the four reactor codes.
-template <bool PIVOT, bool FAULT, bool XK>
+// The (PIVOT, FAULT, XK, PRF, GM) instantiation of the four reactor codes.
+template <bool PIVOT, bool FAULT, bool XK, bool PRF = false, bool GM = false>
 int launch_sdirk(const chem::MechView* m, const SdirkArgs* a, int B,
                  int problem, void* stream) {
   switch (problem) {
-    case chem::CONP: return launch_sdirk_as<chem::CONP, PIVOT, FAULT, XK>(m, a, B, stream);
-    case chem::CONV: return launch_sdirk_as<chem::CONV, PIVOT, FAULT, XK>(m, a, B, stream);
+    case chem::CONP:
+      return launch_sdirk_as<chem::CONP, PIVOT, FAULT, XK, PRF, GM>(m, a, B, stream);
+    case chem::CONV:
+      return launch_sdirk_as<chem::CONV, PIVOT, FAULT, XK, PRF, GM>(m, a, B, stream);
     case chem::CONP_TGIV:
-      return launch_sdirk_as<chem::CONP_TGIV, PIVOT, FAULT, XK>(m, a, B, stream);
+      return launch_sdirk_as<chem::CONP_TGIV, PIVOT, FAULT, XK, PRF, GM>(m, a, B, stream);
     case chem::CONV_TGIV:
-      return launch_sdirk_as<chem::CONV_TGIV, PIVOT, FAULT, XK>(m, a, B, stream);
+      return launch_sdirk_as<chem::CONV_TGIV, PIVOT, FAULT, XK, PRF, GM>(m, a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,6 +27,7 @@ import torch
 
 from .. import kernels
 from ..constants import P_ATM, R_GAS
+from ..resilience import faultinject
 from ..resilience.status import SolveStatus
 from . import linalg, thermo
 from .reactors import as_torch_mechanism, broadcast_lanes, resolve_device
@@ -240,9 +241,10 @@ def resid_jac(tm, z, sys: _System):
     return r, torch.cat([J_el, torch.stack([J_norm, J1, J2], dim=1)], dim=1)
 
 
-def _newton(tm, z, sys, n_iter, unstable):
+def _newton(tm, z, sys, n_iter, unstable, fault=None):
     """``n_iter`` damped Newton iterations from z (no early exit); returns
-    z and the last iteration's ``unstable`` flag."""
+    z and the last iteration's ``unstable`` flag. ``fault`` [B] bool: the
+    lanes an injected ``linalg_unstable`` fault poisons."""
     MM = tm.MM
     n = MM + 3
     eye = torch.eye(n, dtype=z.dtype, device=z.device)
@@ -252,7 +254,8 @@ def _newton(tm, z, sys, n_iter, unstable):
         r, J = resid_jac(tm, z, sys)
         J = torch.where(torch.isfinite(J), J, torch.zeros_like(J)) + 1e-12 * eye
         r = torch.where(torch.isfinite(r), r, torch.full_like(r, 1e3))
-        dz, unstable = linalg.solve_with_info(J, -r, row_equilibrate=True)
+        dz, unstable = linalg.solve_with_info(J, -r, row_equilibrate=True,
+                                              fault_mask=fault)
         dz = torch.where(torch.isfinite(dz), dz, torch.zeros_like(dz))
         mx = dz.abs().amax(-1)
         alpha = torch.clamp(8.0 / torch.clamp(mx, min=_TINY), max=1.0)
@@ -267,10 +270,11 @@ def _newton(tm, z, sys, n_iter, unstable):
 
 
 def _solve(tm, b, con1, con2, target1, target2, T_init, P_init, X_init,
-           n_iter=_N_ITER, n_pre=_N_PRE) -> EquilibriumResult:
+           n_iter=_N_ITER, n_pre=_N_PRE, fault=None) -> EquilibriumResult:
     """The reference's ``_solve`` on every lane: least-squares start,
     ``n_pre`` composition-only iterations at the initial (T, P) (none for
-    the (T, P) pair), ``n_iter`` iterations on the full system."""
+    the (T, P) pair), ``n_iter`` iterations on the full system; ``fault``
+    as :func:`_newton`'s, in both phases."""
     MM = tm.MM
     B = b.shape[0]
     b_tot = torch.clamp(b.sum(-1), min=_TINY)
@@ -296,9 +300,9 @@ def _solve(tm, b, con1, con2, target1, target2, T_init, P_init, X_init,
     unstable = torch.zeros(B, dtype=torch.bool, device=b.device)
     if n_pre > 0 and not (con1 == CON_T and con2 == CON_P):
         pre = _System((CON_T, CON_P), torch.exp(lnT0), P_init, b_eff, b_scale)
-        z, unstable = _newton(tm, z, pre, n_pre, unstable)
+        z, unstable = _newton(tm, z, pre, n_pre, unstable, fault)
     sys = _System((con1, con2), target1, target2, b_eff, b_scale)
-    z, unstable = _newton(tm, z, sys, n_iter, unstable)
+    z, unstable = _newton(tm, z, sys, n_iter, unstable, fault)
 
     p = _mixture_props(tm, z)
     r_fin = _residual(tm, p, sys)
@@ -345,15 +349,17 @@ def initial_state(tm, T, P, Y, option):
     return Y, b, targets, T_init, X0
 
 
-def equilibrate_plain(tm, T, P, Y, option=1, n_iter=_N_ITER):
+def equilibrate_plain(tm, T, P, Y, option=1, n_iter=_N_ITER, fault=None):
     """Equilibrium of every lane holding the pair of state variables of
     ``option`` (1-9) at their initial-state values: the plain twin of
-    kernel K6. T, P [B]; Y [B, KK]."""
+    kernel K6. T, P [B]; Y [B, KK]; ``fault`` [B] bool: the lanes an
+    injected ``linalg_unstable`` fault poisons (as the reference, the
+    nested options' final solve only)."""
     con1, con2 = EQ_OPTIONS[int(option)]
     Y, b, targets, T_init, X0 = initial_state(tm, T, P, Y, option)
     if not is_nested(option):
         return _solve(tm, b, con1, con2, targets[con1], targets[con2],
-                      T_init, P, X0, n_iter=n_iter)
+                      T_init, P, X0, n_iter=n_iter, fault=fault)
     # (P, S) and (V, S): quasi-Newton on ln T around (T, P/V) solves
     s_target, mech_target = targets[CON_S], targets[con1]
     lnT, P_ws, X_ws = torch.log(T_init), P, X0
@@ -368,7 +374,7 @@ def equilibrate_plain(tm, T, P, Y, option=1, n_iter=_N_ITER):
         P_ws, X_ws = res.P, res.X
     Tf = torch.exp(lnT)
     res = _solve(tm, b, CON_T, con1, Tf, mech_target, Tf, P_ws, X_ws,
-                 n_iter=NEST_FINAL[0], n_pre=NEST_FINAL[1])
+                 n_iter=NEST_FINAL[0], n_pre=NEST_FINAL[1], fault=fault)
     cp = torch.clamp(thermo.mixture_cp_mass(tm, res.T, res.Y), min=_TINY)
     s_ok = (res.s - s_target).abs() / cp < 1e-7
     status = torch.where((res.status == int(SolveStatus.OK)) & ~s_ok,
@@ -379,18 +385,28 @@ def equilibrate_plain(tm, T, P, Y, option=1, n_iter=_N_ITER):
 
 
 @torch.inference_mode()
-def equilibrate(mech, T, P, Y, option=1, *, n_iter=_N_ITER, device=None):
+def equilibrate(mech, T, P, Y, option=1, *, n_iter=_N_ITER, elem_ids=None,
+                fault_level=0, device=None):
     """Equilibrium of each lane from its initial state (T in K, P in
     dyne/cm^2, mass fractions Y), holding the pair of state variables of
     ``option`` (the reference's EQOption 1-9) at their initial values.
     T and P are scalars or [B], Y is [KK] or [B, KK]; returns an
-    :class:`EquilibriumResult` of [B] lanes.
+    :class:`EquilibriumResult` of [B] lanes. ``elem_ids`` [B] (the
+    reference's ``fault_elem`` per lane) and ``fault_level`` thread fault
+    injection: a lane a ``linalg_unstable`` spec poisons at that rescue
+    level gets garbage Newton directions flagged unstable.
 
     Runs on ``cuda`` unless ``device`` names another device: on the card
-    the whole solve is one launch of kernel K6 (``kernels.equil_solve``);
-    on the CPU its twin :func:`equilibrate_plain`."""
+    the whole solve is one launch of kernel K6 (``kernels.equil_solve``;
+    its FAULT instantiation where a lane is poisoned); on the CPU its twin
+    :func:`equilibrate_plain`."""
     dev = resolve_device(device)
     tm = as_torch_mechanism(mech, dev)
-    _, lanes = broadcast_lanes(dev, dict(T=T, P=P), dict(Y=Y))
+    B, lanes = broadcast_lanes(dev, dict(T=T, P=P), dict(Y=Y))
+    fault = None
+    if elem_ids is not None:
+        fault = faultinject.unstable_mask(
+            torch.as_tensor(elem_ids, device=dev).reshape(B),
+            int(fault_level))
     return kernels.equil_solve(tm, lanes["T"], lanes["P"], lanes["Y"],
-                               int(option), int(n_iter))
+                               int(option), int(n_iter), fault=fault)

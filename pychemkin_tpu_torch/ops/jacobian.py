@@ -408,6 +408,134 @@ def conv_tgiv_rhs_jac(tm, y, rho):
     return _tgiv(d.dwdot_dC * (wt[:, None] / wt[None, :])[None], dYdt)
 
 
+def _profiles(args, t):
+    """The profile terms of the reference's _batch_jac_core at the lanes'
+    times: the constraint's value and slope, the heat loss and area."""
+    from . import reactors
+    c, cdot = reactors.profile_value_slope(args.constraint, t)
+    ql, _ = reactors.profile_value_slope(args.qloss, t)
+    ar, _ = reactors.profile_value_slope(args.area, t)
+    return c, cdot, ql, ar
+
+
+def conp_enrg_rhs_jac_prf(tm, t, y, args):
+    """Fused CONP/ENRG (f, J) with profiles (the PRF twin of K2): the
+    adiabatic terms of :func:`conp_enrg_rhs_jac` at P(t), plus the wall
+    heat q = (-qloss + htc area (tamb - T)) / m with dq/dT = -htc area / m
+    and the Pdot/rho term with its +Pdot/(rho T) in dN/dT, as the
+    reference's ``_batch_jac_core`` (ops/jacobian.py:644-666)."""
+    KK = tm.KK
+    wt = tm.wt
+    Y = y[:, :KK]
+    T = torch.clamp(y[:, KK], min=T_FLOOR)
+    mT = (y[:, KK] > T_FLOOR).to(y.dtype)
+    P, Pdot, ql, ar = _profiles(args, t)
+    C, nasa, d, rho, dYdt, DC, rw, J_YY = _conp_species(tm, Y, T, P)
+    wdot, D, w_T = d.wdot, d.dwdot_dC, d.dwdot_dT
+    rho_ = rho[:, None]
+    T_ = T[:, None]
+    dw_dT = w_T - DC / T_
+    J_YT = (wt / rho_) * dw_dT + dYdt / T_
+
+    q = (-ql + args.htc * ar * (args.tamb - T)) / args.mass
+    dq_dT = -args.htc * ar / args.mass
+    cpk = nasa[0] * R_GAS / wt
+    cp = (Y * cpk).sum(-1)
+    h = nasa[1] * (R_GAS * T_)
+    cp_molar = nasa[0] * R_GAS
+    hD = (h[:, None, :] @ D)[:, 0, :]
+    hDC = (h * DC).sum(-1)
+    hw = (h * wdot).sum(-1)
+    dTdt = (q + Pdot / rho - hw / rho) / cp
+    dN_dY = (Pdot - hw + hDC)[:, None] * rw / rho_ - hD / wt
+    J_TY = dN_dY / cp[:, None] - dTdt[:, None] * cpk / cp[:, None]
+    dN_dT = (dq_dT + Pdot / (rho * T)
+             - ((cp_molar * wdot).sum(-1) + (h * dw_dT).sum(-1)) / rho
+             - hw / (rho * T))
+    dcp_dT = (Y * (thermo.dcp_R_dT(tm, T) * R_GAS / wt)).sum(-1)
+    J_TT = (dN_dT - dTdt * dcp_dT) / cp
+    return _assemble(J_YY, J_YT * mT[:, None], J_TY, J_TT * mT, dYdt, dTdt)
+
+
+def conv_enrg_rhs_jac_prf(tm, t, y, args):
+    """Fused CONV/ENRG (f, J) with profiles (the PRF twin of K2):
+    rho = mass / V(t); the T row gains q, dq/dT and the work term
+    -P Vdot/m with dP/dY_j = rho R T / W_j and dP/dT = rho R sum(Y/W), as
+    the reference's ``_batch_jac_core`` (ops/jacobian.py:667-689)."""
+    KK = tm.KK
+    wt = tm.wt
+    Y = y[:, :KK]
+    T = torch.clamp(y[:, KK], min=T_FLOOR)
+    mT = (y[:, KK] > T_FLOOR).to(y.dtype)
+    V, Vdot, ql, ar = _profiles(args, t)
+    rho = args.mass / V
+    C = thermo.Y_to_C(tm, Y, rho)
+    nasa = thermo.nasa7(tm, T)
+    d = kinetics_derivatives(tm, T, C, nasa)
+    wdot, D, w_T = d.wdot, d.dwdot_dC, d.dwdot_dT
+    rho_ = rho[:, None]
+    T_ = T[:, None]
+    dYdt = wdot * wt / rho_
+    J_YY = D * (wt[:, None] / wt[None, :])[None]
+    J_YT = (wt / rho_) * w_T
+
+    q = (-ql + args.htc * ar * (args.tamb - T)) / args.mass
+    dq_dT = -args.htc * ar / args.mass
+    cv_molar = thermo.cv_R(tm, T, nasa) * R_GAS
+    cvk = cv_molar / wt
+    cv = thermo.mixture_cv_mass(tm, T, Y, nasa)
+    u = thermo.u_RT(tm, T, nasa) * (R_GAS * T_)
+    uD = (u[:, None, :] @ D)[:, 0, :]
+    uw = (u * wdot).sum(-1)
+    P = thermo.pressure(tm, T, rho, Y)
+    s = (Y / wt).sum(-1)
+    i_s = (s > 1e-30).to(Y.dtype)
+    vm = Vdot / args.mass
+    dTdt = (q - P * Vdot / args.mass - uw / rho) / cv
+    dN_dY = (-vm[:, None] * rho_ * R_GAS * T_ * i_s[:, None] / wt
+             - uD / wt)
+    J_TY = dN_dY / cv[:, None] - dTdt[:, None] * cvk / cv[:, None]
+    dP_dT = rho * R_GAS * s * i_s
+    dN_dT = (dq_dT - vm * dP_dT
+             - ((cv_molar * wdot).sum(-1) + (u * w_T).sum(-1)) / rho)
+    dcv_dT = (Y * (thermo.dcp_R_dT(tm, T) * R_GAS / wt)).sum(-1)
+    J_TT = (dN_dT - dTdt * dcv_dT) / cv
+    return _assemble(J_YY, J_YT * mT[:, None], J_TY, J_TT * mT, dYdt, dTdt)
+
+
+def _tgiv_prf(J_YY, dYdt, Tdot):
+    """(f, J) of a TGIV reactor with a T(t) profile: f_T = dT/dt of the
+    profile, J's T row and column zero."""
+    z = torch.zeros_like(dYdt)
+    zb = torch.zeros_like(dYdt[:, 0])
+    return _assemble(J_YY, z, z, zb, dYdt, Tdot)
+
+
+def conp_tgiv_rhs_jac_prf(tm, t, y, args):
+    """Fused CONP/TGIV (f, J) with profiles: the species block of
+    CONP/ENRG at T(t) and P(t), f_T = dT/dt of T(t)."""
+    from . import reactors
+    T, Tdot = reactors.profile_value_slope(args.tprof, t)
+    P, _ = reactors.profile_value_slope(args.constraint, t)
+    _, _, _, _, dYdt, _, _, J_YY = _conp_species(tm, y[:, :tm.KK], T, P)
+    return _tgiv_prf(J_YY, dYdt, Tdot)
+
+
+def conv_tgiv_rhs_jac_prf(tm, t, y, args):
+    """Fused CONV/TGIV (f, J) with profiles: the species block at T(t)
+    and rho = mass / V(t), f_T = dT/dt of T(t)."""
+    from . import reactors
+    wt = tm.wt
+    T, Tdot = reactors.profile_value_slope(args.tprof, t)
+    V, _ = reactors.profile_value_slope(args.constraint, t)
+    rho = args.mass / V
+    C = thermo.Y_to_C(tm, y[:, :tm.KK], rho)
+    d = kinetics_derivatives(tm, T, C, thermo.nasa7(tm, T))
+    dYdt = d.wdot * wt / rho[:, None]
+    return _tgiv_prf(d.dwdot_dC * (wt[:, None] / wt[None, :])[None], dYdt,
+                     Tdot)
+
+
 def psr_rhs_jac(tm, y, args, mode, energy, *, scaled=False):
     """(f, J) of the transient PSR RHS (``scaled`` False: what the
     pseudo-transient phase integrates) or of the tau-scaled steady

@@ -198,7 +198,8 @@ def solve_bordered_pivoted(fac: PivotedBorderedFactor, r):
     return torch.cat([u - x_T[:, None] * fac.v, x_T[:, None]], dim=1)
 
 
-def solve_with_info(A, b, *, row_equilibrate=False, bordered=False):
+def solve_with_info(A, b, *, row_equilibrate=False, bordered=False,
+                    fault_mask=None):
     """One-shot A x = b [B, n] with the reference's exact-path contract:
     returns (x, unstable), ``unstable`` True where the residual of the
     FULL system fails ||b - A x|| <= 1e-4 ||b|| + 1e-300 (a NaN fails).
@@ -206,7 +207,10 @@ def solve_with_info(A, b, *, row_equilibrate=False, bordered=False):
     check then runs on the scaled system, as the reference's does);
     ``bordered`` eliminates the last row/column through
     :func:`factor_bordered_pivoted`, else A is factored whole by
-    :func:`lu_pivot`."""
+    :func:`lu_pivot`. ``fault_mask`` [B] bool (an injected
+    ``linalg_unstable`` fault, or None): on those lanes x is scaled by 1e8
+    after the check and ``unstable`` is forced, as the reference's
+    injection makes the direction garbage (ops/linalg.py:479-487)."""
     if row_equilibrate:
         rs = 1.0 / torch.clamp(A.abs().amax(-1), min=1e-300)
         A = A * rs[:, :, None]
@@ -219,4 +223,8 @@ def solve_with_info(A, b, *, row_equilibrate=False, bordered=False):
     r = b - (A @ x[:, :, None])[..., 0]
     rn = torch.sqrt((r * r).sum(-1))
     bn = torch.sqrt((b * b).sum(-1))
-    return x, ~(rn <= _INFO_RTOL * bn + 1e-300)
+    unstable = ~(rn <= _INFO_RTOL * bn + 1e-300)
+    if fault_mask is not None:
+        x = torch.where(fault_mask[:, None], x * 1e8, x)
+        unstable = unstable | fault_mask
+    return x, unstable

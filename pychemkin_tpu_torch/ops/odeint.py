@@ -17,10 +17,18 @@ module runs the batch in Python loops:
 
 The attempt calls ``ops.rhs_jac`` once (kernel K2), ``ops.factor`` once
 (K3), ``ops.rhs`` once per Newton iteration (K1) and ``ops.solve`` once
-per Newton iteration plus once for the error filter (K4). ``ops`` is
-either the kernel wrappers or the plain twins. On the card the sweep
-runs :func:`sweep_round` as one kernel instead (``kernels.sdirk_round``,
-K5), and this loop over the plain twins is that kernel's reference.
+per Newton iteration plus once for the error filter (K4), each RHS at
+its time (the Jacobian at the step's start t, the stages at t + c_s h),
+which profiles read. ``ops`` is either the kernel wrappers or the plain
+twins. On the card the sweep runs :func:`sweep_round` as one kernel
+instead (``kernels.sdirk_round``, K5), and this loop over the plain twins
+is that kernel's reference.
+
+:func:`odeint` is the reference's output-grid integrator: the segments
+between the times ``ts`` [B, n_out], each advanced until no lane is
+active (in rounds of K5 on the card), the solution stored at each time,
+with the reference's per-segment budget and status
+(:class:`ODESolution`, :func:`solution_stats`).
 """
 
 from __future__ import annotations
@@ -30,9 +38,9 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from .. import knobs
+from .. import knobs, telemetry
 from ..resilience.faultinject import FAULT_NAN, FAULT_STALL
-from ..resilience.status import SolveStatus
+from ..resilience.status import SolveStatus, status_counts
 
 #: the switch of the per-lane solve profile (see :func:`solve_profile_enabled`)
 SOLVE_PROFILE_ENV = "PYCHEMKIN_SOLVE_PROFILE"
@@ -104,10 +112,12 @@ class Event(NamedTuple):
 
 class Lanes(NamedTuple):
     """Per-lane constants of a sweep: the constraint value [B] (pressure
-    in dyne/cm^2 for CONP, density in g/cm^3 for CONV), absolute
-    tolerances [B, N], end time [B] and the event threshold [B]; with
-    fault injection on, the fault bits [B] int32 (FAULT_NAN, FAULT_STALL)
-    and the nan_rhs start time [B] (None when no fault is active)."""
+    in dyne/cm^2 for CONP, density in g/cm^3 for CONV; or, for
+    ``solve_batch``'s reactors, an ``ops.reactors.BatchArgs`` of profiles
+    whose tensors are all [B]-leading), absolute tolerances [B, N], end
+    time [B] and the event threshold [B]; with fault injection on, the
+    fault bits [B] int32 (FAULT_NAN, FAULT_STALL) and the nan_rhs start
+    time [B] (None when no fault is active)."""
     constraint: Any
     atol: Any
     t_end: Any
@@ -134,9 +144,10 @@ class StepState(NamedTuple):
 
 
 class Ops(NamedTuple):
-    """The four kernel functions the integrator calls."""
-    rhs: Callable          # (tm, y, constraint) -> f
-    rhs_jac: Callable      # (tm, y, constraint) -> (f, J)
+    """The four kernel functions the integrator calls; ``t`` [B] is the
+    time of each lane's state (read by profiles)."""
+    rhs: Callable          # (tm, y, constraint, t) -> f
+    rhs_jac: Callable      # (tm, y, constraint, t) -> (f, J)
     factor: Callable       # (J, hg) -> factor
     solve: Callable        # (factor, r) -> x
 
@@ -180,7 +191,7 @@ def _newton_stage(ops, tm, lanes, t_stage, y_base, z0, h, fac, w):
     run = torch.ones(B, dtype=torch.bool, device=dev)
     while bool(run.any()):
         g = z - h[:, None] * poison(lanes, t_stage, ops.rhs(
-            tm, y_base + _GAMMA * z, lanes.constraint))
+            tm, y_base + _GAMMA * z, lanes.constraint, t_stage))
         dz = ops.solve(fac, -g)
         dn = _norm(dz, w)
         dn = torch.where(torch.isfinite(dn), dn,
@@ -265,7 +276,7 @@ def attempt(ops, tm, lanes, events, rtol, s: StepState) -> StepState:
     h = torch.minimum(torch.maximum(s.h, dt_min), remaining)
     clipped = s.h > remaining
 
-    _, J = ops.rhs_jac(tm, s.y, lanes.constraint)
+    _, J = ops.rhs_jac(tm, s.y, lanes.constraint, s.t)
     fac = ops.factor(J, h * _GAMMA)
     w = lanes.atol + rtol * torch.abs(s.y)
     hc = h[:, None]
@@ -339,16 +350,18 @@ def attempt(ops, tm, lanes, events, rtol, s: StepState) -> StepState:
     )
 
 
-def sweep_start(ops, tm, lanes, y0, rtol, events, h0=0.0) -> StepState:
-    """Initial state of a single-segment integration of [0, t_end] per
-    lane: initial RHS, starting step (``h0`` > 0: that step), event
+def sweep_start(ops, tm, lanes, y0, rtol, events, h0=0.0,
+                t0=None) -> StepState:
+    """Initial state of an integration of [t0, t_end] per lane (t0 [B],
+    default 0): initial RHS, starting step (``h0`` > 0: that step), event
     accumulators ("max" events start at NaN/-inf, "crossing" events at
     +inf/-inf)."""
     B = y0.shape[0]
     dev, dt = y0.device, y0.dtype
-    t0 = torch.zeros(B, dtype=dt, device=dev)
+    if t0 is None:
+        t0 = torch.zeros(B, dtype=dt, device=dev)
     t_span = torch.clamp(lanes.t_end - t0, min=1e-30)
-    f0 = poison(lanes, t0, ops.rhs(tm, y0, lanes.constraint))
+    f0 = poison(lanes, t0, ops.rhs(tm, y0, lanes.constraint, t0))
     h_init = initial_step(f0, y0, lanes.atol, rtol, t_span, h0)
     n_ev = max(len(events), 1)
     acc_t0 = torch.tensor([float("inf") if ev.kind == "crossing"
@@ -367,8 +380,10 @@ def sweep_start(ops, tm, lanes, y0, rtol, events, h0=0.0) -> StepState:
 
 
 def _take(tree, idx):
-    return type(tree)(*[None if x is None else x.index_select(0, idx)
-                        for x in tree])
+    """The rows ``idx`` of every tensor of a (nested) NamedTuple."""
+    return type(tree)(*[None if x is None else
+                        (_take(x, idx) if isinstance(x, tuple)
+                         else x.index_select(0, idx)) for x in tree])
 
 
 def _put(tree, idx, sub):
@@ -424,3 +439,172 @@ def sweep_finalize(state: StepState, t_end, events):
     t_span = torch.clamp(t_end, min=1e-30)
     success = ~stalled & (state.t >= t_end - 1e-12 * t_span)
     return ev_t, state.acc_v, success, status
+
+
+# ---------------------------------------------------------------------------
+# The output grid: the reference's ``odeint`` (ops/odeint.py:603) with its
+# ``_solve_segment`` (:581) per output interval.
+
+class ODESolution(NamedTuple):
+    """The solution of :func:`odeint`, every field [B]-leading: the output
+    times ``ts`` [B, n_out] and the state there ``ys`` [B, n_out, N], the
+    event accumulators [B, n_events], the counters, ``success`` (reached
+    the last time without stalling), the time at exit, the stall flag,
+    the SolveStatus codes and the profile extras (smallest accepted step,
+    controller step at exit; ``stiffness`` is left to the caller)."""
+    ts: Any
+    ys: Any
+    event_times: Any
+    event_values: Any
+    n_steps: Any
+    n_rejected: Any
+    success: Any
+    t_final: Any = None
+    stalled: Any = None
+    n_newton: Any = None
+    status: Any = None
+    dt_min: Any = None
+    dt_final: Any = None
+    stiffness: Any = None
+
+
+def odeint(ops, tm, lanes, y0, ts, events, *, rtol, max_steps_per_segment,
+           h0=0.0, rounds=None) -> ODESolution:
+    """Integrate every lane from ``ts[:, 0]`` through ``ts[:, -1]`` and
+    return the state at each of its output times ``ts`` [B, n_out]
+    (strictly increasing per lane): the reference's output-grid
+    integrator over [B] lanes.
+
+    Segment k sets the lanes' t_end to ``ts[:, k]`` and each lane's
+    attempt budget to its attempts so far plus ``max_steps_per_segment``,
+    and steps until no lane is active: with ``rounds`` (a callable
+    ``(lanes, state, budget) -> state`` making one round of attempts, K5
+    on the card) with one host sync per round, else through the
+    host-driven loop :func:`sweep_round` over ``ops``. A lane that ends a
+    segment short of its time (budget exhausted or stalled) is failed
+    from then on: BUDGET_EXHAUSTED unless it stalled, and it advances no
+    further. The steps' time limit dt_min follows each segment's end,
+    events carry across segments, and ``success`` is ``~stalled`` and
+    ``t >= ts[:, -1] - 1e-12 (ts[:, -1] - ts[:, 0])``. ``ops.rhs`` gives
+    the initial RHS (K1 on the card)."""
+    B, n_out = ts.shape
+    if n_out < 2:
+        raise ValueError(f"odeint needs >= 2 output times, got {n_out}")
+    if not bool((ts[:, 1:] > ts[:, :-1]).all()):
+        raise ValueError("odeint output grid ts must be strictly increasing")
+    t0, t_last = ts[:, 0].contiguous(), ts[:, -1].contiguous()
+    state = sweep_start(ops, tm, lanes._replace(t_end=t_last), y0, rtol,
+                        events, h0, t0=t0)
+    # the state's y is y0 itself, which K5 advances in place
+    ys = [y0.clone()]
+    ok, exhausted = int(SolveStatus.OK), int(SolveStatus.BUDGET_EXHAUSTED)
+    for k in range(1, n_out):
+        lk = lanes._replace(t_end=ts[:, k].contiguous())
+        budget = state.n_steps + state.n_rejected + int(max_steps_per_segment)
+        if rounds is None:
+            state = sweep_round(ops, tm, lk, events, rtol, budget, state)
+        else:
+            while bool(sweep_going(state, lk, budget).any()):
+                state = rounds(lk, state, budget)
+        short = state.t < lk.t_end
+        state = state._replace(
+            status=torch.where(short & (state.status == ok),
+                               torch.full_like(state.status, exhausted),
+                               state.status),
+            stalled=state.stalled | short)
+        ys.append(state.y.clone())
+    ev_t = state.acc_t
+    if events:
+        is_cross = torch.tensor([ev.kind == "crossing" for ev in events],
+                                device=ev_t.device)
+        ev_t = torch.where(is_cross[None] & ~torch.isfinite(ev_t),
+                           torch.full_like(ev_t, float("nan")), ev_t)
+    t_span = torch.clamp(t_last - t0, min=1e-30)
+    success = ~state.stalled & (state.t >= t_last - 1e-12 * t_span)
+    return ODESolution(
+        ts=ts, ys=torch.stack(ys, dim=1), event_times=ev_t,
+        event_values=state.acc_v, n_steps=state.n_steps,
+        n_rejected=state.n_rejected, success=success, t_final=state.t,
+        stalled=state.stalled, n_newton=state.n_newton, status=state.status,
+        dt_min=state.dt_min, dt_final=state.h)
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def solution_stats(sol, *, label: str = "", kind: str | None = None,
+                   wall_s: float | None = None, recorder=None,
+                   emit: bool = True) -> dict:
+    """Host-side aggregate of one batched :class:`ODESolution` (or a
+    ``BatchSolution`` of ``ops.reactors``, or a list or tuple of them, of
+    mixed kinds) into one JSON-ready dict of per-solve counters, recorded
+    as an ``odeint`` event on ``recorder`` (default: the process's
+    recorder) with the reference's counters when ``emit``: ``n_elements``,
+    ``n_steps``, ``n_rejected``, ``n_newton`` (None when no member tracks
+    it; members that do not are counted in ``n_newton_untracked``),
+    ``n_success``, ``n_stalled``, ``status_counts``, and with ``wall_s``
+    the wall and steps per second."""
+    if isinstance(sol, (list, tuple)) and not hasattr(sol, "n_steps"):
+        sols = list(sol)
+    else:
+        sols = [sol]
+    if not sols:
+        raise ValueError("solution_stats needs at least one solution")
+    n_elems = n_steps = n_rejected = n_success = n_newton = 0
+    n_newton_untracked = n_stalled = 0
+    newton_tracked = stalled_tracked = False
+    status_arrays = []
+    for s in sols:
+        size = int(_host(s.n_steps).size)
+        n_elems += size
+        n_steps += int(_host(s.n_steps).sum())
+        n_rejected += int(_host(s.n_rejected).sum())
+        n_success += int(_host(s.success).sum())
+        if s.n_newton is not None:
+            newton_tracked = True
+            n_newton += int(_host(s.n_newton).sum())
+        else:
+            n_newton_untracked += size
+        if getattr(s, "stalled", None) is not None:
+            stalled_tracked = True
+            n_stalled += int(_host(s.stalled).sum())
+        if s.status is not None:
+            status_arrays.append(_host(s.status))
+    stats = {
+        "n_elements": n_elems,
+        "n_steps": n_steps,
+        "n_rejected": n_rejected,
+        "n_newton": n_newton if newton_tracked else None,
+        "n_newton_untracked": n_newton_untracked,
+        "n_success": n_success,
+        "n_stalled": n_stalled if stalled_tracked else None,
+    }
+    if kind is not None:
+        stats["solve_kind"] = kind
+    if status_arrays:
+        stats["status_counts"] = status_counts(
+            np.concatenate([a.reshape(-1) for a in status_arrays]))
+    if wall_s is not None:
+        stats["wall_s"] = round(float(wall_s), 6)
+        if wall_s > 0:
+            stats["steps_per_sec"] = round(stats["n_steps"] / wall_s, 2)
+    if emit:
+        rec = recorder if recorder is not None else telemetry.get_recorder()
+        rec.event("odeint", label=label, **stats)
+        rec.inc("odeint.solves")
+        rec.inc("odeint.steps", stats["n_steps"])
+        rec.inc("odeint.rejected", stats["n_rejected"])
+        if newton_tracked:
+            rec.inc("odeint.newton", n_newton)
+            if kind is not None:
+                rec.inc(f"odeint.newton.{kind}", n_newton)
+        if n_newton_untracked:
+            rec.inc("odeint.newton_untracked", n_newton_untracked)
+        if stats["n_stalled"]:
+            rec.inc("odeint.stalled", stats["n_stalled"])
+        for name, n in (stats.get("status_counts") or {}).items():
+            if name != "OK":
+                rec.inc(f"odeint.status.{name}", n)
+    return stats

@@ -26,6 +26,7 @@ import torch
 
 from .. import kernels
 from ..constants import R_GAS
+from ..resilience import faultinject
 from ..resilience.status import SolveStatus
 from . import jacobian, kinetics, linalg, thermo
 from .reactors import as_torch_mechanism, broadcast_lanes, resolve_device
@@ -151,10 +152,11 @@ def _clip_state(y, ctl):
                       torch.clamp(y[:, -1:], 150.0, ctl.T_max)], dim=1)
 
 
-def newton_phase(tm, y, args, mode, energy, ctl):
+def newton_phase(tm, y, args, mode, energy, ctl, fault=None):
     """Damped Newton on every lane until its step converges or
     ``n_newton`` iterations; returns (y, converged, iterations, unstable of
-    the last iteration)."""
+    the last iteration). ``fault`` [B] bool: the lanes an injected
+    ``linalg_unstable`` fault poisons."""
     B, N = y.shape
     eye = torch.eye(N, dtype=y.dtype, device=y.device)
     conv = torch.zeros(B, dtype=torch.bool, device=y.device)
@@ -169,7 +171,9 @@ def newton_phase(tm, y, args, mode, energy, ctl):
         r, J = jacobian.psr_rhs_jac(tm, ya, aa, mode, energy, scaled=True)
         J = torch.where(torch.isfinite(J), J, torch.zeros_like(J)) + 1e-14 * eye
         r = torch.where(torch.isfinite(r), r, torch.full_like(r, 1e6))
-        dy, uns = linalg.solve_with_info(J, -r, bordered=True)
+        dy, uns = linalg.solve_with_info(
+            J, -r, bordered=True,
+            fault_mask=None if fault is None else fault[idx])
         dy = torch.where(torch.isfinite(dy), dy, torch.zeros_like(dy))
         aT = 150.0 / torch.clamp(dy[:, -1].abs(), min=_TINY)
         aY = 0.2 / torch.clamp(dy[:, :-1].abs().amax(-1), min=_TINY)
@@ -220,10 +224,12 @@ def pseudo_transient_phase(tm, y, args, mode, energy, ctl):
 
 
 def solve_psr_plain(tm, mode, energy, args: PSRArgs, y0,
-                    ctl: PSRControls) -> PSRSolution:
+                    ctl: PSRControls, fault=None) -> PSRSolution:
     """The plain twin of kernel K7: the whole solve of every lane from its
-    guess y0 [B, N]."""
-    y1, conv1, n1, unst1 = newton_phase(tm, y0, args, mode, energy, ctl)
+    guess y0 [B, N]; ``fault`` as :func:`newton_phase`'s, in both Newton
+    phases."""
+    y1, conv1, n1, unst1 = newton_phase(tm, y0, args, mode, energy, ctl,
+                                        fault)
     y = y1.clone()
     n2 = torch.zeros_like(n1)
     conv = conv1.clone()
@@ -232,7 +238,9 @@ def solve_psr_plain(tm, mode, energy, args: PSRArgs, y0,
     if idx.numel():
         sa = _sub(args, idx)
         y_pt = pseudo_transient_phase(tm, y1[idx], sa, mode, energy, ctl)
-        y2, c2, it2, u2 = newton_phase(tm, y_pt, sa, mode, energy, ctl)
+        y2, c2, it2, u2 = newton_phase(
+            tm, y_pt, sa, mode, energy, ctl,
+            None if fault is None else fault[idx])
         y[idx], conv[idx], n2[idx], lin_unstable[idx] = y2, c2, it2, u2
     return finish(tm, y, conv, n1, n2, lin_unstable, args, mode, energy,
                   ctl)
@@ -270,13 +278,18 @@ def solve_psr(mech, mode, energy, *, P, Y_in, h_in, T_guess, Y_guess,
               ss_atol=1e-9, ss_rtol=1e-4, n_newton=50, n_pseudo=100,
               pseudo_dt0=1e-6, pseudo_up=2.0, pseudo_down=2.2,
               pseudo_dt_min=1e-10, pseudo_dt_max=1e-2, T_max=5000.0,
-              species_floor=-1e-14, device=None) -> PSRSolution:
+              species_floor=-1e-14, elem_ids=None, fault_level=0,
+              device=None) -> PSRSolution:
     """PSR steady states of a batch of lanes: ``mode`` "tau" (residence
     time given) or "vol" (volume given), ``energy`` "ENRG" or "TGIV", with
     the reference's controls and defaults. Scalars or [B] for P, h_in,
     T_guess, tau, volume, mdot, qloss and T_fixed; [KK] or [B, KK] for
     Y_in and Y_guess. Returns a :class:`PSRSolution` of [B] lanes whose
-    ``status`` holds the reference's SolveStatus codes.
+    ``status`` holds the reference's SolveStatus codes. ``elem_ids`` [B]
+    (the reference's ``fault_elem`` per lane) and ``fault_level`` thread
+    fault injection: a lane a ``linalg_unstable`` spec poisons at that
+    rescue level gets garbage Newton directions flagged unstable (on the
+    card K7's FAULT instantiation).
 
     Runs on ``cuda`` unless ``device`` names another device: on the card
     the whole solve is one launch of kernel K7 (``kernels.psr_solve``);
@@ -295,4 +308,9 @@ def solve_psr(mech, mode, energy, *, P, Y_in, h_in, T_guess, Y_guess,
     ctl = PSRControls(ss_atol, ss_rtol, int(n_newton), int(n_pseudo),
                       pseudo_dt0, pseudo_up, pseudo_down, pseudo_dt_min,
                       pseudo_dt_max, T_max, species_floor)
-    return kernels.psr_solve(tm, mode, energy, args, y0, ctl)
+    fault = None
+    if elem_ids is not None:
+        fault = faultinject.unstable_mask(
+            torch.as_tensor(elem_ids, device=dev).reshape(y0.shape[0]),
+            int(fault_level))
+    return kernels.psr_solve(tm, mode, energy, args, y0, ctl, fault=fault)

@@ -14,8 +14,10 @@ every call. The ignition sweep honours two modes:
 - ``newton_stall``: every stage Newton of the lane reports
   non-convergence (classified NEWTON_STALL).
 
-``linalg_unstable`` is parsed as in the reference; it belongs to the
-steady-state solvers, which do not read it in the port yet.
+``linalg_unstable`` belongs to the steady-state solvers (equilibrium and
+PSR): every Newton direction of a poisoned lane is scaled by 1e8 and its
+solve reported unstable (:func:`unstable_mask`; on the card the FAULT
+instantiations of kernels K6 and K7).
 
 With no spec active nothing changes: :func:`lane_faults` returns
 ``(None, None)`` and the sweep runs its fault-free kernel. Otherwise the
@@ -118,6 +120,22 @@ def lane_mask(spec: FaultSpec, elem_ids, level: int) -> torch.Tensor:
     sel = torch.isin(elem_ids, targets)
     if spec.heal_at >= 0 and level >= spec.heal_at:
         sel = torch.zeros_like(sel)
+    return sel
+
+
+def unstable_mask(elem_ids, level: int):
+    """[B] bool: the lanes with original indices ``elem_ids`` that a
+    ``linalg_unstable`` spec poisons at rescue level ``level`` (the
+    reference's ``linalg_unstable_mask``, per lane); None when
+    ``elem_ids`` is None or no lane is poisoned."""
+    if elem_ids is None:
+        return None
+    sel = torch.zeros(elem_ids.shape, dtype=torch.bool,
+                      device=elem_ids.device)
+    for s in specs("linalg_unstable"):
+        sel = sel | lane_mask(s, elem_ids, level)
+    if not bool(sel.any()):
+        return None
     return sel
 
 

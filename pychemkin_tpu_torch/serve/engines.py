@@ -22,11 +22,12 @@ Engines also own the off-hot-path rescue: ``rescue_one`` re-solves one
 failed request under the per-kind escalation of rung ``level`` (the
 ignition engine walks the rescue ladder's knobs; the fixed-iteration
 Newton kinds grow their iteration budgets). Fault injection
-(:mod:`..resilience.faultinject`) reaches the ignition sweep (lanes carry
-their position as the fault element id, rescue re-solves the original
-lane and the rung as ``fault_level``); K6 and K7 have no fault hooks yet,
-so the equilibrium and PSR engines raise ``NotImplementedError`` while
-injection is on rather than solve unfaulted.
+(:mod:`..resilience.faultinject`) reaches every kind as in the reference:
+lanes carry their position in the batch as the fault element id, and a
+rescue re-solves the original lane with the rung as ``fault_level``: the
+ignition sweep's NaN-RHS and Newton-stall faults (K5's FAULT
+instantiation), and the equilibrium and PSR solvers' ``linalg_unstable``
+(K6's and K7's).
 """
 
 from __future__ import annotations
@@ -231,12 +232,12 @@ class Engine:
         raise NotImplementedError
 
 
-def _no_fault_hooks(kind: str) -> None:
-    if faultinject.enabled():
-        raise NotImplementedError(
-            f"fault injection into the {kind} solver is not ported (its "
-            "kernel has no fault hooks); clear the fault specs to serve "
-            f"{kind} requests")
+def _elems(n: int, elem_id=None):
+    """The fault element ids of a solve while injection is on (the lanes'
+    positions in the batch, or the rescued request's lane), else None."""
+    if not faultinject.enabled():
+        return None
+    return list(range(n)) if elem_id is None else [elem_id]
 
 
 class IgnitionEngine(Engine):
@@ -363,10 +364,11 @@ class EquilibriumEngine(Engine):
         return {"T": 1500.0, "P": 1.01325e6, "Y": np.full(KK, 1.0 / KK),
                 "option": 1}
 
-    def _solve(self, Ts, Ps, Ys, option, n_iter):
-        _no_fault_hooks(self.kind)
+    def _solve(self, Ts, Ps, Ys, option, n_iter, *, elem_id=None, level=0):
         res = eq_ops.equilibrate(self.tm, Ts, Ps, Ys, option=option,
-                                 n_iter=n_iter, device=self.device)
+                                 n_iter=n_iter,
+                                 elem_ids=_elems(Ts.shape[0], elem_id),
+                                 fault_level=level, device=self.device)
         return {"T": res.T, "P": res.P, "X": res.X, "Y": res.Y, "h": res.h,
                 "converged": res.converged, "status": res.status}
 
@@ -387,7 +389,8 @@ class EquilibriumEngine(Engine):
                                 device=self.device) for f in self.fields]
         # escalation: the iteration budget, the knob that fixes a
         # TOL_NOT_MET of the fixed-iteration Newton
-        out = to_host(self._solve(*cols, option, self.n_iter * 2 ** level))
+        out = to_host(self._solve(*cols, option, self.n_iter * 2 ** level,
+                                  elem_id=elem_id, level=level))
         return out, int(out["status"][0])
 
 
@@ -452,13 +455,13 @@ class PSREngine(Engine):
                 "T_in": 1000.0}
 
     def _solve(self, taus, Ps, Y_ins, h_ins, T_gs, Y_gs, *, n_newton,
-               n_pseudo):
-        _no_fault_hooks(self.kind)
+               n_pseudo, elem_id=None, level=0):
         sol = psr_ops.solve_psr(
             self.tm, psr_ops.MODE_TAU, self.energy, P=Ps, Y_in=Y_ins,
             h_in=h_ins, T_guess=T_gs, Y_guess=Y_gs, tau=taus,
-            n_newton=n_newton, n_pseudo=n_pseudo, device=self.device,
-            **self.solver_kwargs)
+            n_newton=n_newton, n_pseudo=n_pseudo,
+            elem_ids=_elems(taus.shape[0], elem_id), fault_level=level,
+            device=self.device, **self.solver_kwargs)
         d = {"T": sol.T, "Y": sol.Y, "residual": sol.residual,
              "converged": sol.converged, "status": sol.status}
         if solve_profile_enabled():
@@ -481,7 +484,8 @@ class PSREngine(Engine):
         # escalation: more damped-Newton room and a longer pseudo-transient
         # phase per rung
         out = to_host(self._solve(*cols, n_newton=self.n_newton * (level + 1),
-                                  n_pseudo=self.n_pseudo * 2 ** level))
+                                  n_pseudo=self.n_pseudo * 2 ** level,
+                                  elem_id=elem_id, level=level))
         return out, int(out["status"][0])
 
 

@@ -243,11 +243,32 @@ def test_sweep_knobs_match_jax(h2o2, knob):
 
 
 def test_unported_jacobian_mode_raises(h2o2):
+    """``jac_mode="ad"``, which this test once expected to raise, now runs
+    the reference's other Jacobian path (forward-mode AD of the twin RHS
+    in the host-driven loop): its J equals the closed form within 1e-10
+    of the lane's fastest rate, and its sweep gives the analytic sweep's
+    status and ignition times within rtol. An unknown mode or ignition
+    kwarg still raises."""
     _, rec = h2o2
     args = _inputs(rec, 2)
-    with pytest.raises(NotImplementedError, match="jac_mode='ad'"):
-        reactors.ignition_delay_sweep(rec, "CONP", "ENRG", *args,
-                                      jac_mode="ad", device="cpu")
+    tm = tmech.TorchMechanism(rec, "cpu")
+    y = torch.cat([torch.tensor(args[2]), torch.tensor(args[0])[:, None]], 1)
+    P = torch.tensor(args[1])
+    for code in ("CONP", "CONV_TGIV"):
+        J_ad = reactors.jacfwd_jacobian(code, tm, y, P, torch.zeros(2))
+        _, J = reactors.RHS_TWINS[code][1](tm, y, P)
+        scale = J.abs().amax((1, 2), keepdim=True)
+        assert float(((J_ad - J).abs() / scale).max()) <= 1e-10, code
+    # a short horizon (the AD Jacobian costs N forward passes a step)
+    short = (args[0], args[1], args[2], np.full(2, 3e-6))
+    kw = dict(ignition_kwargs={"min_slope": -1e30}, device="cpu")
+    t_ad, ok_ad, st_ad = reactors.ignition_delay_sweep(
+        rec, "CONP", "ENRG", *short, jac_mode="ad", **kw)
+    t_an, ok_an, st_an = reactors.ignition_delay_sweep(
+        rec, "CONP", "ENRG", *short, **kw)
+    np.testing.assert_array_equal(st_ad.numpy(), st_an.numpy())
+    assert ok_ad.all() and np.isfinite(t_ad.numpy()).all()
+    np.testing.assert_allclose(t_ad.numpy(), t_an.numpy(), rtol=RTOL, atol=0)
     with pytest.raises(ValueError, match="jac_mode"):
         reactors.ignition_delay_sweep(rec, "CONP", "ENRG", *args,
                                       jac_mode="fd", device="cpu")

@@ -4,13 +4,13 @@ admission, deadlines, coalescing with zero first dispatches after
 warmup, drain, tracing spans, rescue), and parity of the slice with the
 JAX package.
 
-- Faults: the reference's serving tests fault equilibrium lanes
-  (``linalg_unstable``); the port's equilibrium and PSR kernels have no
-  fault hooks yet, so here a Newton-stall fault hits one ignition lane of
-  a batch, the rescue thread heals it at rung 1 and its companions equal
-  the clean batch within 1e-12 relative (bitwise on the card, where each
-  lane is its own block; the CPU twins' batched products round per batch
-  width); the equilibrium and PSR engines raise under injection.
+- Faults: a Newton-stall fault hits one ignition lane of a batch, the
+  rescue thread heals it at rung 1 and its companions equal the clean
+  batch within 1e-12 relative (bitwise on the card, where each lane is
+  its own block; the CPU twins' batched products round per batch width);
+  the equilibrium and PSR engines solve under a ``linalg_unstable``
+  fault as the reference's do (tests/test_torch_steady_faults.py heals
+  one at its rung).
 - Parity: the same seeded payloads through the port's ``ChemServer``
   (served, ``device="cpu"``) and the reference's ``ChemServer.solve_direct``
   for each kind: equal status codes; ignition times within 1e-4 relative
@@ -534,21 +534,24 @@ def test_abandoned_fault_reports_status(mech, ign_payloads):
 
 @pytest.mark.parametrize("kind", ["equilibrium", "psr"])
 def test_steady_engines_raise_under_injection(mech, Y_h2air, kind):
-    """K6 and K7 have no fault hooks: under injection their engines raise
-    (the batch's futures carry the error) instead of solving unfaulted."""
+    """The equilibrium and PSR engines, which this test once expected to
+    raise under injection (K6 and K7 had no fault hooks), now solve with
+    the fault: a ``linalg_unstable`` lane that never heals comes back
+    LINALG_UNSTABLE from ``solve_direct`` and, served, is abandoned after
+    the rescue ladder, with no batch error."""
     rec = telemetry.MetricsRecorder()
     server = _server(mech, bucket_sizes=(1,), max_delay_ms=5.0,
                      recorder=rec)
     payload = (_eq_payload(Y_h2air) if kind == "equilibrium" else
                dict(tau=1e-3, P=P_ATM, Y_in=Y_h2air, T_in=600.0))
     with faultinject.inject(FaultSpec("linalg_unstable", (0,))):
-        with pytest.raises(NotImplementedError, match="fault"):
-            server.solve_direct(kind, **payload)
+        direct = server.solve_direct(kind, **payload)
+        assert direct.status_name == "LINALG_UNSTABLE"
         with server:
-            fut = server.submit(kind, **payload)
-            with pytest.raises(NotImplementedError, match="fault"):
-                fut.result(timeout=60)
-    assert rec.counters["serve.batch_errors"] == 1
+            r = server.submit(kind, **payload).result(timeout=300)
+    assert not r.ok and not r.rescued and r.rescue_rungs >= 1
+    assert r.status_name == "LINALG_UNSTABLE"
+    assert rec.counters.get("serve.batch_errors", 0) == 0
 
 
 def test_demux_error_contained_to_lane(mech, Y_h2air):

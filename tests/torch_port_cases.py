@@ -1,7 +1,10 @@
 """Shared inputs of the PyTorch-port tests (tests/test_torch_*.py): lane
 states made with numpy from a seed, the hand-built one-reaction
-mechanisms of each reaction type, and the scale-relative error measure.
-Both packages get the same numpy arrays."""
+mechanisms of each reaction type, the synthetic large mechanism, and the
+scale-relative error measure. Both packages get the same numpy arrays."""
+
+import os
+import re
 
 import numpy as np
 
@@ -264,3 +267,61 @@ def serve_psr_payloads(Y_in, h_in, tau, T_guess, Y_guess, P=P_ATM):
     return [dict(tau=float(tau[i]), P=float(P), Y_in=np.asarray(Y_in[i]),
                  h_in=float(h_in[i]), T_guess=float(T_guess[i]),
                  Y_guess=np.asarray(Y_guess[i])) for i in range(len(tau))]
+
+
+#: grisyn's source (the port's copy of the fixture)
+GRISYN_INP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "pychemkin_tpu_torch", "mechanism", "data",
+                          "grisyn.inp")
+
+
+def synthetic_mechanism_text(copies):
+    """A large mechanism made from grisyn (53 species, 325 reactions):
+    ``copies`` copies of its species, thermo and reactions, copy k's
+    species renamed with the suffix ``_k`` (copy 0 keeps grisyn's names),
+    so that the copies share only the elements. 3 copies: 159 species and
+    975 reactions; 8 copies: 424 and 2600. The repository ships no
+    mechanism this large; this one has grisyn's reaction types and
+    sparsity at a size where a lane no longer fits in shared memory."""
+    with open(GRISYN_INP) as fh:
+        lines = fh.read().splitlines()
+    up = [ln.strip().upper() for ln in lines]
+    i_sp, i_th, i_rx = (up.index("SPECIES"), up.index("THERMO ALL"),
+                        up.index("REACTIONS"))
+    ends = [i for i, u in enumerate(up) if u == "END"]
+    e_sp = min(i for i in ends if i > i_sp)
+    e_th = min(i for i in ends if i > i_th)
+    e_rx = min(i for i in ends if i > i_rx)
+    species = " ".join(lines[i_sp + 1:e_sp]).split()
+    pattern = re.compile(r"(?<![A-Za-z_])(" + "|".join(
+        re.escape(n) for n in sorted(species, key=len, reverse=True))
+        + r")(?![A-Za-z_])")
+    thermo_head = lines[i_th + 1]
+    thermo = lines[i_th + 2:e_th]
+    reactions = lines[i_rx + 1:e_rx]
+
+    def suffix(k):
+        return "" if k == 0 else f"_{k}"
+
+    out = lines[:i_sp] + ["SPECIES"]
+    for k in range(copies):
+        names = [n + suffix(k) for n in species]
+        out += [" ".join(names[j:j + 8]) for j in range(0, len(names), 8)]
+    out += ["END", "THERMO ALL", thermo_head]
+    for k in range(copies):
+        for j, ln in enumerate(thermo):
+            if j % 4 == 0:
+                name = ln[:18].split()[0] + suffix(k)
+                ln = name.ljust(18) + ln[18:]
+            out.append(ln)
+    out += ["END", "REACTIONS"]
+    for k in range(copies):
+        for ln in reactions:
+            head, sep, tail = ln.partition("!")
+            if re.match(r"\s*(LOW|TROE|SRI|REV|DUP)", head.upper()):
+                out.append(ln)
+            else:
+                out.append(pattern.sub(lambda m: m.group(1) + suffix(k),
+                                       head) + sep + tail)
+    out.append("END")
+    return "\n".join(out) + "\n"
