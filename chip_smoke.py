@@ -461,23 +461,35 @@ def _rhs_rows(tm, B, reps, problems, mech="grisyn", home=None,
 
 def check_kernels(tm, B, reps):
     """Phase 2, K1-K4: every kernel against its plain twin at B lanes."""
+    rows = _rhs_rows(tm, B, reps, ("CONP", "CONV"), home={
+        "CONP": ("conp_k5", "conp_host_loop"),
+        "CONV": ("conv_k5", "conv_host_loop")})
+    rows.extend(_k34_rows(tm, B, reps, "conp_host_loop"))
+    return rows
+
+
+def _k34_rows(tm, B, reps, home, mech="grisyn"):
+    """K3 and K4 against their twins on B realistic states of ``tm``, h
+    log-uniform over 1e-9..1e-4 s, in the instantiations the mechanism's
+    size picks (GM past shared memory): rows whose launches ``home`` reads."""
     import torch
     from pychemkin_tpu_torch import kernels
     from pychemkin_tpu_torch.ops import jacobian, linalg
     N = tm.N
-    rows = _rhs_rows(tm, B, reps, ("CONP", "CONV"), home={
-        "CONP": ("conp_k5", "conp_host_loop"),
-        "CONV": ("conv_k5", "conv_host_loop")})
-
-    # K3 / K4 on realistic states, h log-uniform over 1e-9..1e-4 s
+    n = N - 1
+    gm3 = 8 * kernels.lane_doubles("bordered_factor", n, 0, 0, 0) > \
+        kernels.smem_limit("cuda")
+    name3 = kernels.launch_name("bordered_factor", gm=gm3)
+    name4 = kernels.launch_name("bordered_solve",
+                                gm=n > 32 * kernels.SOLVE_MAXR)
+    rows = []
     y, P = _states(tm, B, 1, realistic=True)
     _, J = jacobian.conp_enrg_rhs_jac(tm, y, P)
     g = torch.Generator(device="cpu").manual_seed(2)
     h = 10 ** (torch.rand(B, generator=g, dtype=torch.float64) * 5 - 9)
     hg = (h * 0.435866521508458999416019).to(tm.device)
     r = torch.randn(B, N, generator=g, dtype=torch.float64).to(tm.device)
-    fac_k = _launched("bordered_factor",
-                      lambda: kernels.bordered_factor(J, hg))
+    fac_k = _launched(name3, lambda: kernels.bordered_factor(J, hg))
     fac_t = linalg.factor_bordered(J, hg)
     torch.cuda.synchronize()
     e3 = max(float(((a - b).abs().flatten(1).amax(1)
@@ -485,7 +497,7 @@ def check_kernels(tm, B, reps):
              if a.dim() > 1 else
              float(((a - b).abs() / b.abs().clamp_min(1e-300)).max())
              for a, b in zip(fac_k, fac_t))
-    x_k = _launched("bordered_solve", lambda: kernels.bordered_solve(fac_k, r))
+    x_k = _launched(name4, lambda: kernels.bordered_solve(fac_k, r))
     x_t = linalg.solve_bordered(fac_t, r)
     torch.cuda.synchronize()
     M = linalg.newton_matrix(J, hg)
@@ -498,15 +510,14 @@ def check_kernels(tm, B, reps):
     assert back <= 1e-10, f"K3+K4 relative residual {back:.3e} > 1e-10"
     assert e3 <= 1e-10, f"K3 vs twin {e3:.3e} > 1e-10"
     assert e4 <= 1e-10, f"K3+K4 vs twin {e4:.3e} > 1e-10"
-    n = N - 1
     ms = _time_ms(lambda: kernels.bordered_factor(J, hg), reps)
     pms = _time_ms(lambda: linalg.factor_bordered(J, hg), 2)
     lms = _time_ms(lambda: torch.linalg.lu_factor_ex(M), reps)
     nbytes = B * (N * N + 1 + n * n + 2 * n + 1) * 8
     flops = B * (2.0 * N * N + 2.0 * n ** 3 / 3 + 2.0 * n * n + 2 * n)
     bms, by = _bound_ms(nbytes, flops)
-    rows.append(_row("bordered_factor", "bordered_factor.cu",
-                     "ops/linalg.py:249", home="conp_host_loop",
+    rows.append(_row(name3, "bordered_factor.cu",
+                     "ops/linalg.py:249", home=home, mech=mech, batch=B,
                      max_abs_err=float(max((a - b).abs().max()
                                            for a, b in zip(fac_k, fac_t))),
                      scale_rel_err=e3, ms=ms, plain_ms=pms, bound_ms=bms,
@@ -520,13 +531,13 @@ def check_kernels(tm, B, reps):
     nbytes = B * (n * n + 2 * n + 1 + 2 * N) * 8
     flops = B * (2.0 * n * n + 4 * n)
     bms, by = _bound_ms(nbytes, flops)
-    rows.append(_row("bordered_solve", "bordered_solve.cu",
-                     "ops/linalg.py:285", home="conp_host_loop",
+    rows.append(_row(name4, "bordered_solve.cu",
+                     "ops/linalg.py:285", home=home, mech=mech, batch=B,
                      max_abs_err=float((x_k - x_t).abs().max()),
                      scale_rel_err=e4, residual=back, ms=ms, plain_ms=pms,
                      bound_ms=bms, bound_by=by, library_ms=lms,
                      library_call="torch.linalg.lu_solve(LU, piv, r)"))
-    for row in rows[-2:]:
+    for row in rows:
         _print_row(row)
     return rows
 
@@ -781,30 +792,40 @@ def _twin_worker(job):
                                         energy, T0s, P0s, Y0, t_end, **full)
             out = {f: getattr(sol, f).numpy()
                    for f in ("T", "P", "volume", "status")}
+            if full["profile"]:
+                out["stiffness"] = sol.profile["stiffness"].numpy()
     return out, time.perf_counter() - t0
 
 
 def _batch_twin_check(tag, pick, mine):
     """The check of a deferred phase 8 twin rerun: the same status, T, P
-    and V at every output time within 1e-6 relative."""
+    and V at every output time within 1e-6 relative, and the stiffness
+    rate at t_final (K8 PRF against the twin's, at final states that
+    differ by the trajectories' roundoff) within STIFF_TOL relative."""
     import numpy as np
 
     def check(res, seconds):
         err = {f: float(np.max(np.abs(mine[f] - res[f])
                                / np.maximum(np.abs(res[f]), 1e-300)))
-               for f in ("T", "P", "volume")}
+               for f in ("T", "P", "volume", "stiffness")}
+        e_stiff = err.pop("stiffness")
         print(f"{tag}: plain-twin rerun of lanes {pick.tolist()} "
               f"({seconds:.1f} s): T, P, V at every output time within "
               f"{err}", flush=True)
+        print(f"  stiffness at t_final within {e_stiff:.3e}", flush=True)
         assert np.array_equal(res["status"], mine["status"]), \
             f"{tag}: twin status"
         assert max(err.values()) <= 1e-6, f"{tag}: vs twins {err}"
-        _TWIN_RESULTS[tag] = err
+        assert e_stiff <= STIFF_TOL, f"{tag}: stiffness vs twins {e_stiff}"
+        _TWIN_RESULTS[tag] = err | {"stiffness": e_stiff}
     return check
 
 
 #: the deferred phase 8 twin comparisons, by tag
 _TWIN_RESULTS = {}
+#: the stiffness rate at t_final against the twins' (the CPU tests'
+#: tolerance for the profiled sweep's, tests/test_torch_stiffness.py)
+STIFF_TOL = 1e-4
 
 
 def run_twin_jobs():
@@ -2628,19 +2649,26 @@ N_OUT = 101
 #: lanes of phase 8's host-driven K1-K4 run
 HOST_LANES = 512
 #: phase 8's cells on grisyn at B lanes: (label, problem, energy, T0 range,
-#: t_end, solve_batch's profile arguments, ignition mode and kwargs). 8a
-#: is a rapid compression machine: V(t) 1 -> 0.1 cm^3 over 20 ms, then
-#: held, with wall loss; at T0 450-550 K its lanes do not ignite (the
-#: loss, htc area / m ~ 100 1/s of (T - tamb), cools the charge faster
-#: than the compression heats it), so the range is moved to 1000-1100 K.
+#: P0 range, t_end, solve_batch's profile arguments, ignition mode and
+#: kwargs), T0 and P0 each evenly over its range across the lanes. 8a
+#: has a rapid compression machine's volume history: V(t) 1 -> 0.1 cm^3
+#: over 20 ms, then held, with wall loss. The loss's time constant
+#: m cv / (htc area) is ~10 ms at 1 atm and 1 cm^3 (printed by the
+#: phase), so by the end of the compression the charge has forgotten T0
+#: and stays below ignition: at T0 450-550 K no lane ignites. The range
+#: is moved to 1000-1100 K, where every lane ignites within the first
+#: millisecond, before the volume has dropped 5 % (the phase prints the
+#: volume at ignition): the cell exercises V(t), V' and the wall loss in
+#: the kernels, not a compression-driven ignition. 8c spreads its lanes
+#: over P0 1-5 atm under the shared T(t) ramp.
 PHASE8 = (
-    ("8a_rcm", "CONV", "ENRG", (1000.0, 1100.0), 0.05,
+    ("8a_rcm", "CONV", "ENRG", (1000.0, 1100.0), (P_ATM, P_ATM), 0.05,
      dict(constraint_profile=((0.0, 0.02, 0.05), (1.0, 0.1, 0.1)),
           htc=5e5, area=1.0, tamb=300.0), "T_inflection", None),
-    ("8b_p_ramp", "CONP", "ENRG", (1000.0, 1400.0), 0.05,
+    ("8b_p_ramp", "CONP", "ENRG", (1000.0, 1400.0), (P_ATM, P_ATM), 0.05,
      dict(constraint_profile=((0.0, 0.05), (P_ATM, 2 * P_ATM)),
           qloss_profile=((0.0, 0.05), (1e6, 1e6))), "T_inflection", None),
-    ("8c_t_ramp", "CONP", "TGIV", (900.0, 900.0), 0.01,
+    ("8c_t_ramp", "CONP", "TGIV", (900.0, 900.0), (P_ATM, 5 * P_ATM), 0.01,
      dict(t_profile=((0.0, 0.01), (900.0, 1400.0))), "Species_peak",
      {"species_index": OH}),
 )
@@ -2660,15 +2688,16 @@ def _profiles_on(kw, device):
     return out
 
 
-def _batch_args(tm, problem, energy, T0, t_end, prof, mode, ikw, B):
-    """The positional and keyword arguments of phase 8's solve_batch."""
+def _batch_args(tm, problem, energy, T0, P0, t_end, prof, mode, ikw, B):
+    """The positional and keyword arguments of phase 8's solve_batch, with
+    the solve profile (its stiffness is K8's, PRF, at t_final)."""
     import numpy as np
     T0s = np.linspace(T0[0], T0[1], B)
     kw = dict(n_out=N_OUT, rtol=1e-6, atol=1e-12, ignition_mode=mode,
-              ignition_kwargs=ikw, device="cuda",
+              ignition_kwargs=ikw, device="cuda", profile=True,
               **_profiles_on(prof, "cuda"))
-    return (tm, problem, energy, T0s, np.full(B, P_ATM), _stoich_Y(tm),
-            np.full(B, t_end)), kw
+    return (tm, problem, energy, T0s, np.linspace(P0[0], P0[1], B),
+            _stoich_Y(tm), np.full(B, t_end)), kw
 
 
 def _solve_timed(ops, args, kw):
@@ -2703,8 +2732,8 @@ def _tpv_rel(a, b, pick=None):
 
 
 def _prf_kernel_rows(tm, setup, code, label, B_rows, reps, mech="grisyn"):
-    """K1 and K2 PRF against their twins on B_rows random states at random
-    times inside the profiles, and K5 PRF over one round of K5_ATTEMPTS
+    """K1, K2 and K8 PRF against their twins on B_rows random states at
+    random times inside the profiles, and K5 PRF over one round of K5_ATTEMPTS
     attempts on K5_BATCH lanes from the start of ``setup``'s lanes against
     the twin: rows with the kernels' times and bounds."""
     import numpy as np
@@ -2755,6 +2784,30 @@ def _prf_kernel_rows(tm, setup, code, label, B_rows, reps, mech="grisyn"):
                          plain_ms=pms, bound_ms=bms, bound_by=by,
                          library_ms=None))
         _print_row(rows[-1])
+    # K8 PRF: the stiffness rate of the profile Jacobian, against the twin
+    name = kernels.launch_name("gershgorin_rate", code, xk=xk, prf=True)
+    out = _launched(name, lambda: kernels.gershgorin_rate(tm, y, a, code,
+                                                          t=t))
+    want = odeint.gershgorin_rate(jac_t(tm, t, y, a)[1])
+    torch.cuda.synchronize()
+    err, same_nan, mae = _k8_rel(out, want)
+    assert same_nan and err <= K8_TOL, f"{name} vs twin {err:.3e}"
+    ms = _time_ms(lambda: kernels.gershgorin_rate(tm, y, a, code, t=t), reps)
+    pms = _time_ms(lambda: odeint.gershgorin_rate(jac_t(tm, t, y, a)[1]),
+                   max(reps // 10, 2))
+    J = kernels.rhs_jac(tm, y, a, code, t=t)[1]
+    lms = _time_ms(lambda: torch.linalg.matrix_norm(J, ord=float("inf")),
+                   reps)
+    bms, by = _bound_ms(B_rows * (N + 3) * 8 + mech_b,
+                        B_rows * (_rate_flops(tm, True, code) + 2.0 * N * N))
+    rows.append(_row(name, "gershgorin_prf.cu", K8_REPLACES + " with "
+                     "ops/jacobian.py:558-700 (profile terms)",
+                     home=f"{label}_k5", mech=mech, batch=B_rows,
+                     max_abs_err=mae, scale_rel_err=err, ms=ms, plain_ms=pms,
+                     bound_ms=bms, bound_by=by, library_ms=lms,
+                     library_call="torch.linalg.matrix_norm(J, inf) of K2 "
+                     "PRF's J"))
+    _print_row(rows[-1])
     # K5 PRF: one round from the lanes' start, against the twin
     pick = torch.arange(K5_BATCH, device="cuda") * (
         setup.y0.shape[0] // K5_BATCH)
@@ -2801,13 +2854,13 @@ def solve_batch_phase(tm, B, base, reference_sweeps, reps, t_end=0.05):
     import numpy as np
     import torch
     from pychemkin_tpu_torch import kernels
-    from pychemkin_tpu_torch.ops import reactors
+    from pychemkin_tpu_torch.ops import reactors, thermo
     from pychemkin_tpu_torch.resilience.status import (SolveStatus,
                                                        status_counts)
     launches, summaries, rows = {}, [], []
-    for label, problem, energy, T0, t_end, prof, mode, ikw in PHASE8:
+    for label, problem, energy, T0, P0, t_end, prof, mode, ikw in PHASE8:
         code = reactors.variant(problem, energy)
-        args, kw = _batch_args(tm, problem, energy, T0, t_end, prof, mode,
+        args, kw = _batch_args(tm, problem, energy, T0, P0, t_end, prof, mode,
                                ikw, B)
         tag = f"{label} {problem}/{energy}"
         sol, wall, lk = _solve_timed(None, args, kw)
@@ -2818,6 +2871,8 @@ def solve_batch_phase(tm, B, base, reference_sweeps, reps, t_end=0.05):
                                     xk=kernels.extended(tm), prf=True)
         name1 = kernels.launch_name("rhs", code, xk=kernels.extended(tm),
                                     prf=True)
+        name8 = kernels.launch_name("gershgorin_rate", code,
+                                    xk=kernels.extended(tm), prf=True)
         ok_share = float((st == int(SolveStatus.OK)).mean())
         Tmax = float(sol.T.max())
         ref = reference_sweeps.get(code)
@@ -2832,7 +2887,35 @@ def solve_batch_phase(tm, B, base, reference_sweeps, reps, t_end=0.05):
               f"{ {k: ref[k] for k in ('wall_s', 'ignitions_per_s', 'attempts', 'newton')} if ref else None}"
               f"; launches { {k: v for k, v in lk.items() if v} }",
               flush=True)
-        assert lk[name5] > 0 and lk[name1] > 0, lk
+        assert lk[name5] > 0 and lk[name1] > 0 and lk[name8] == 1, lk
+        stiff = sol.profile["stiffness"]
+        assert bool((torch.isfinite(stiff) & (stiff > 0)).all()), \
+            f"{tag}: stiffness at t_final"
+        extra = {}
+        if problem == "CONV":
+            # where the lanes are when they ignite: V at the ignition time,
+            # and the wall loss's time constant m cv(T0) / (htc area)
+            setup = reactors.batch_setup(*args, **{
+                k: v for k, v in kw.items() if k not in ("rtol", "profile")})
+            a0 = setup.args
+            cv = thermo.mixture_cv_mass(tm, setup.y0[:, tm.KK],
+                                        setup.y0[:, :tm.KK])
+            tau_loss = a0.mass * cv / (a0.htc * a0.area.y[:, 0])
+            ign = sol.ignition_time
+            fin = torch.isfinite(ign)
+            v_ign = reactors.profile_value_slope(
+                a0.constraint, torch.where(fin, ign, 0.0))[0][fin]
+            extra = dict(
+                ignited_share=float(fin.double().mean()),
+                volume_at_ignition=[float(v_ign.min()), float(v_ign.max())]
+                if bool(fin.any()) else None,
+                wall_loss_time_constant_s=[float(tau_loss.min()),
+                                           float(tau_loss.max())])
+            print(f"  {tag}: ignited {extra['ignited_share']:.4f} of the "
+                  f"lanes, V at ignition {extra['volume_at_ignition']} cm^3 "
+                  f"(1 at t = 0, 0.1 from 20 ms); the wall loss's time "
+                  f"constant m cv / (htc area) "
+                  f"{extra['wall_loss_time_constant_s']} s", flush=True)
         assert lk[kernels.launch_name("rhs_jac", code,
                                       xk=kernels.extended(tm), prf=True)] \
             == lk["bordered_factor"] == 0, lk
@@ -2863,15 +2946,17 @@ def solve_batch_phase(tm, B, base, reference_sweeps, reps, t_end=0.05):
         # 8 lanes through the twins (deferred: on the CPU in parallel after
         # the timed phases)
         pick = np.unique(np.linspace(0, B - 1, 8).round().astype(int))
-        mine = {f: getattr(sol, f)[torch.as_tensor(pick, device="cuda")]
-                .cpu().numpy() for f in ("T", "P", "volume", "status")}
+        pt = torch.as_tensor(pick, device="cuda")
+        mine = {f: getattr(sol, f)[pt].cpu().numpy()
+                for f in ("T", "P", "volume", "status")}
+        mine["stiffness"] = stiff[pt].cpu().numpy()
         _defer_twin(("batch", _mech_spec(tm), problem, energy,
                      args[3][pick], args[4][pick], args[5], args[6][pick],
                      {k: v for k, v in kw.items() if k != "device"} | {
                          k: v for k, v in prof.items()}),
                     _batch_twin_check(tag, pick, mine))
-        setup = reactors.batch_setup(*args, **{k: v for k, v in kw.items()
-                                               if k not in ("rtol",)})
+        setup = reactors.batch_setup(*args, **{
+            k: v for k, v in kw.items() if k not in ("rtol", "profile")})
         rows.extend(_prf_kernel_rows(tm, setup, code, label, B, reps))
         summaries.append(dict(
             label=label, problem=problem, energy=energy, T0=list(T0),
@@ -2879,15 +2964,16 @@ def solve_batch_phase(tm, B, base, reference_sweeps, reps, t_end=0.05):
             solutions_per_s=B / wall, attempts=int(att.sum()),
             max_attempts=int(att.max()), newton=int(sol.n_newton.sum()),
             ok_share=ok_share, status=status_counts(st), T_max=Tmax,
+            P0=list(P0), **extra,
             host_loop_wall_s=wall_h, max_rel_vs_host_loop=e_host,
             constant_profile_sweep={k: ref[k] for k in (
                 "wall_s", "ignitions_per_s", "attempts", "newton")}
             if ref else None))
     # the constant-profile special case against phase 3's sweep, bitwise
     base_t, base_st = base
-    args, kw = _batch_args(tm, "CONP", "ENRG", (1000.0, 1400.0), t_end, {},
-                           "T_inflection", None, B)
-    kw["n_out"] = 2
+    args, kw = _batch_args(tm, "CONP", "ENRG", (1000.0, 1400.0),
+                           (P_ATM, P_ATM), t_end, {}, "T_inflection", None, B)
+    kw.update(n_out=2, profile=False)
     sol, wall, lk = _solve_timed(None, args, kw)
     launches["8_constant_n_out_2"] = lk
     same_t = np.array_equal(sol.ignition_time.cpu().numpy(), base_t,
@@ -2908,6 +2994,14 @@ BIG_COPIES = 8
 BIG_B = 256
 BIG_CHECK_B = 64
 BIG_PSR_B = 16
+#: phase 9's short sweep through the host loop over K1-K4 and through K5:
+#: lanes and t_end (before any lane ignites: a few dozen attempts)
+BIG_HOST_B = 16
+BIG_HOST_T_END = 1e-5
+#: the launches each phase 9 row reads: the run of the main path that
+#: launches the instantiation (K2 runs only in the host loop)
+BIG_HOMES = {"rhs": "big_sweep", "rhs_jac": "big_host_loop",
+             "gershgorin_rate": "big_sweep"}
 
 
 def large_mech_phase(tm, reps):
@@ -2915,10 +3009,16 @@ def large_mech_phase(tm, reps):
     tests/torch_port_cases.py): the size chooser's storage for each kernel
     at the card's limit; K1, K2 and K8 against their twins on BIG_CHECK_B
     random states; K5 over one round of K5_ATTEMPTS attempts on
-    BIG_CHECK_B lanes against the twin; K7 on BIG_PSR_B lanes from K6's
-    HP equilibrium guess against the twin; and a BIG_B CONP/ENRG sweep
-    with every lane OK. Every launch of K1, K2, K5, K7 and K8 must be the
-    GM instantiation. Returns ({label: launches}, summary, rows)."""
+    BIG_CHECK_B lanes against the twin; a BIG_HOST_B sweep to
+    BIG_HOST_T_END through the host loop over K1-K4 (K2, K3 and K4 GM,
+    also held against their twins) and through K5, which must agree; K7
+    on BIG_PSR_B lanes (phase 2c's cold inlets: 298.15 and 700 K, tau
+    1e-4-1 s) from K6's HP equilibrium guess against the twin, by phase
+    2c's rule (rounding-chaotic lanes found by twin reruns), at least
+    half of them OK in both; and a BIG_B CONP/ENRG sweep with every lane
+    OK. Every launch of K1, K2, K3, K4, K5, K7 and K8 must be the GM
+    instantiation. Each row reads its launches from the run of the path
+    that launches it. Returns ({label: launches}, summary, rows)."""
     import ctypes
     import numpy as np
     import torch
@@ -2980,7 +3080,7 @@ def large_mech_phase(tm, reps):
         ms = _time_ms(lambda: fn(tm, y, P), max(reps // 4, 2))
         pms = _time_ms(lambda: twin(tm, y, P), 2)
         bms, by = _bound_ms(nb + mech_b, BIG_CHECK_B * fl)
-        rows.append(_row(name, src, rep, home="big_checks",
+        rows.append(_row(name, src, rep, home=BIG_HOMES[kname],
                          mech=f"grisyn x{BIG_COPIES}", batch=BIG_CHECK_B,
                          max_abs_err=float((out - want).abs().max()),
                          scale_rel_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
@@ -3009,12 +3109,53 @@ def large_mech_phase(tm, reps):
                      workspace_bytes=kernels.WORKSPACE_BYTES.get(name5),
                      **stats))
     _print_row(rows[-1])
-    launches["big_checks"] = dict(kernels.LAUNCHES)
-    # K7 GM from K6's guess, against the twin
+    # K3 and K4 GM against their twins, then a short sweep through the host
+    # loop over K1-K4 (K2 GM's home) and through K5
+    rows.extend(_k34_rows(tm, BIG_CHECK_B, max(reps // 4, 2),
+                          "big_host_loop", mech=f"grisyn x{BIG_COPIES}"))
+    for row in rows[-2:]:
+        assert row["name"].endswith("_gm"), row["name"]
+    T0h = np.linspace(1000.0, 1400.0, BIG_HOST_B)
+    Y0h = np.tile(_stoich_Y(tm), (BIG_HOST_B, 1))
+    host = {}
+    for label, ops in (("big_host_loop", reactors.kernel_ops("CONP")),
+                       ("big_host_k5", None)):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = reactors._sweep(
+            ops, tm, "CONP", "ENRG", T0h, P_ATM, Y0h, BIG_HOST_T_END,
+            rtol=1e-6, atol=1e-12, ignition_mode="T_inflection",
+            max_steps_per_segment=20_000, device="cuda", profile=True)
+        torch.cuda.synchronize()
+        host[label] = (out, time.perf_counter() - t0)
+        launches[label] = dict(kernels.LAUNCHES)
+    (_, _, st_h, pr_h), wall_h = host["big_host_loop"]
+    (_, _, st_k, pr_k), wall_k = host["big_host_k5"]
+    lh, lk = launches["big_host_loop"], launches["big_host_k5"]
+    att_h = int((pr_h["n_steps"] + pr_h["n_rejected"]).sum())
+    att_k = int((pr_k["n_steps"] + pr_k["n_rejected"]).sum())
+    e_h = {k: float(((pr_k[k] - pr_h[k]).abs() / pr_h[k].abs()).max())
+           for k in ("dt_final", "stiffness")}
+    print(f"sweep grisyn x{BIG_COPIES} B={BIG_HOST_B} to {BIG_HOST_T_END} "
+          f"s: host loop over K1-K4 {wall_h:.3f} s, {att_h} attempts; K5 "
+          f"{wall_k:.3f} s, {att_k} attempts; K5 vs host loop (dt_final, "
+          f"stiffness) within {e_h}; launches "
+          f"{ {k: v for k, v in lh.items() if v} }", flush=True)
+    name2 = kernels.launch_name("rhs_jac", xk=kernels.extended(tm), gm=True)
+    assert lh[name2] > 0 and lh[rows[-2]["name"]] > 0 and \
+        lh[rows[-1]["name"]] > 0 and lh[name5] == 0, lh
+    assert lk[name5] > 0 and lk[name2] == 0, lk
+    assert torch.equal(st_h, st_k) and bool(
+        (st_k == int(SolveStatus.OK)).all()), (st_h, st_k)
+    assert abs(att_h - att_k) <= 0.01 * att_k, (att_h, att_k)
+    assert max(e_h.values()) <= STIFF_TOL, e_h
+    # K7 GM from K6's guess, against the twin, on phase 2c's cold inlets
     f64 = dict(dtype=torch.float64, device="cuda")
     Y_in = torch.tensor(np.tile(_stoich_Y(tm), (BIG_PSR_B, 1)), **f64)
-    T_in = torch.full((BIG_PSR_B,), 800.0, **f64)
-    tau = torch.tensor(np.geomspace(1e-2, 1.0, BIG_PSR_B), **f64)
+    T_in = torch.tensor(np.repeat([298.15, 700.0], BIG_PSR_B // 2), **f64)
+    tau = torch.tensor(np.tile(np.geomspace(1e-4, 1.0, BIG_PSR_B // 2), 2),
+                       **f64)
     with torch.inference_mode():
         h_in = thermo.mixture_enthalpy_mass(tm, T_in, Y_in)
     torch.cuda.synchronize()
@@ -3053,15 +3194,23 @@ def large_mech_phase(tm, reps):
     kern = {f: getattr(sol, f).cpu() for f in sol._fields}
 
     def check7(res, seconds):
+        # phase 2c's rule: where kernel and twin differ, the twin reruns
+        # from the guess moved by 1e-15 (here on the CPU, as the twin ran)
+        from pychemkin_tpu_torch.mechanism import TorchMechanism
         q = psr.PSRSolution(**{f: torch.as_tensor(v) for f, v in res.items()})
         k = psr.PSRSolution(**kern)
-        cmp = _compare_psr(f"K7 GM x{BIG_COPIES}", k, q, lambda lanes: [],
-                           MAP_TOL)
+        tm_cpu = TorchMechanism(_mech_spec(tm), "cpu")
+        args_cpu = type(args)(*[a.cpu() for a in args])
+        with torch.inference_mode():
+            cmp = _compare_psr(f"K7 GM x{BIG_COPIES}", k, q, _rerun(
+                tm_cpu, "tau", "ENRG", args_cpu, y0.cpu(), ctl, 9), MAP_TOL)
         ok = (k.status == 0) & (q.status == 0)
+        burning = int(((k.T > T_in.cpu() + 500.0) & ok).sum())
         print(f"K7 GM x{BIG_COPIES} B={BIG_PSR_B}: {wall_psr:.3f} s with the "
-              f"K6 guess; status {status_counts(k.status.numpy())}; against "
-              f"the twin ({seconds:.1f} s on the CPU) {cmp}", flush=True)
-        assert cmp["ok_both"] > 0, cmp
+              f"K6 guess; status {status_counts(k.status.numpy())}, {burning}"
+              f" OK lanes burning (T > T_in + 500 K); against the twin "
+              f"({seconds:.1f} s on the CPU) {cmp}", flush=True)
+        assert cmp["ok_both"] >= BIG_PSR_B // 2, cmp
         row7.update(max_abs_err=float((k.T - q.T).abs()[ok].max())
                     if bool(ok.any()) else 0.0, scale_rel_err=cmp["err_T"],
                     plain_ms=seconds * 1e3, plain_on="cpu")
@@ -3100,7 +3249,9 @@ def large_mech_phase(tm, reps):
     return launches, dict(storage=storage, limit=limit, sweep_wall_s=wall,
                           sweep_ignitions_per_s=BIG_B / wall,
                           sweep_attempts=int(att.sum()),
-                          workspace_bytes=ws, psr_wall_s=wall_psr), rows
+                          workspace_bytes=ws, psr_wall_s=wall_psr,
+                          host_loop_wall_s=wall_h, host_k5_wall_s=wall_k,
+                          host_attempts=att_h), rows
 
 
 #: ptxas's mangled kernel names -> kernels.LAUNCHES names
@@ -3122,10 +3273,11 @@ def _launch_name_of(mangled):
                            m.group(2) == "1", m.group(3) == "1",
                            m.group(4) == "1", prf=m.group(5) == "1",
                            gm=m.group(6) == "1")
-    m = re.search(r"gershgorin_kernelILi(\d)" + 2 * b + "E", mangled)
+    m = re.search(r"gershgorin_kernelILi(\d)" + 3 * b + "E", mangled)
     if m:
         return launch_name("gershgorin_rate", _CODES[int(m.group(1))],
-                           xk=m.group(2) == "1", gm=m.group(3) == "1")
+                           xk=m.group(2) == "1", prf=m.group(3) == "1",
+                           gm=m.group(4) == "1")
     m = re.search(r"psr_kernelILb([01])" + 2 * b + "E", mangled)
     if m:
         return launch_name("psr_solve", xk=m.group(1) == "1",
@@ -3134,10 +3286,10 @@ def _launch_name_of(mangled):
     if m:
         return launch_name("equil_solve", fault=m.group(1) == "1",
                            gm=m.group(2) == "1")
-    for key, name in (("bordered_factor", "bordered_factor"),
-                      ("bordered_solve", "bordered_solve")):
-        if key in mangled:
-            return name
+    m = re.search(r"(bordered_factor|bordered_solve)_kernelILb([01])E",
+                  mangled)
+    if m:
+        return launch_name(m.group(1), gm=m.group(2) == "1")
     return None
 
 

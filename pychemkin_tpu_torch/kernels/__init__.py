@@ -31,7 +31,7 @@ under its own name in :data:`LAUNCHES` (:func:`launch_name`: "rhs",
 
 Two more template flags, each its own instantiation:
 
-- PRF ("_prf"): K1, K2 and K5 for ``solve_batch``'s reactors, whose
+- PRF ("_prf"): K1, K2, K5 and K8 for ``solve_batch``'s reactors, whose
   constraint value (P(t), or rho = mass / V(t)), given temperature T(t)
   and wall heat loss come from piecewise-linear profiles at each RHS's
   time (:class:`~..ops.reactors.BatchArgs` in place of the [B] constraint
@@ -75,7 +75,7 @@ def launch_name(kernel, problem="CONP", pivot=False, fault=False, xk=False,
     """The :data:`LAUNCHES` entry of ``kernel``'s instantiation for
     ``problem`` (and, for K5, ``pivot``; for K5, K6 and K7, ``fault``);
     ``xk``: the lane body with PLOG rows and fractional orders (K1, K2,
-    K5, K7, K8); ``prf``: profiles (K1, K2, K5); ``gm``: the lane in a
+    K5, K7, K8); ``prf``: profiles (K1, K2, K5, K8); ``gm``: the lane in a
     device-memory workspace."""
     name = kernel if problem == "CONP" else f"{kernel}_{problem.lower()}"
     return (name + ("_pivot" if pivot else "") + ("_fault" if fault else "")
@@ -102,8 +102,8 @@ LAUNCHES = {n: 0 for n in (
     + [launch_name("equil_solve", fault=fl, gm=g) for fl in _TF for g in _TF]
     + [launch_name("psr_solve", fault=fl, xk=x, gm=g) for fl in _TF
        for x in _TF for g in _TF]
-    + [launch_name("gershgorin_rate", p, xk=x, gm=g) for p in PROBLEMS
-       for x in _TF for g in _TF])}
+    + [launch_name("gershgorin_rate", p, xk=x, prf=pr, gm=g)
+       for p in PROBLEMS for x in _TF for pr in _TF for g in _TF])}
 
 #: K6's limit: n = MM + 3 unknowns
 EQ_MAX_N = 12
@@ -131,7 +131,7 @@ def lane_doubles(kernel, KK, II, n_tb, n_plog, MM=0, pivot=False) -> int:
     mechanism of KK species, II reactions, n_tb third-body rows, n_plog
     PLOG rows and MM elements: the layouts of csrc/chem.cuh
     ``lane_smem_doubles``, sdirk_round.cuh ``sdirk_lane_doubles``,
-    gershgorin.cu, psr_solve.cuh ``psr_lane_doubles`` and equilibrium.cu
+    gershgorin.cuh, psr_solve.cuh ``psr_lane_doubles`` and equilibrium.cu
     ``eq_lane_doubles`` (the library's ``chem_*lane_doubles`` answer the
     same on the card)."""
     N = KK + 1
@@ -491,29 +491,31 @@ def rhs_jac(tm, y, c, problem="CONP", t=None):
     return f, J
 
 
-def gershgorin_rate(tm, y, c, problem="CONP"):
+def gershgorin_rate(tm, y, c, problem="CONP", t=None):
     """K8: the Gershgorin bound max_i sum_j |J_ij| [B] of the closed-form
     Jacobian J = d(rhs)/dy of ``problem`` at the states ``y`` [B, N], with
     the constraint value ``c`` [B] (pressure for the CONP codes, density
-    for the CONV codes); a TGIV lane's T is its state's T entry. NaN
+    for the CONV codes; a TGIV lane's T is its state's T entry), or with
+    ``c`` a :class:`~..ops.reactors.BatchArgs` (the PRF instantiation) at
+    the lanes' times ``t`` [B], as :func:`rhs_jac` takes them. NaN
     anywhere in a lane's J gives NaN. On the CPU: K2's twin, then
     :func:`..ops.odeint.gershgorin_rate`."""
-    code = _problem(problem)
-    B = y.shape[0]
-    _check("y", y, (B, tm.N))
-    _check("c", c, (B,))
-    if not _route(y, c):
+    prf, tensors = _rhs_tensors("gershgorin_rate", tm, y, c, problem, t)
+    if not _route(*tensors):
         from ..ops.odeint import gershgorin_rate as plain
-        from ..ops.reactors import RHS_TWINS
-        return plain(RHS_TWINS[problem][1](tm, y, c)[1])
+        return plain(_twin(1, tm, y, c, problem, t, prf)[1])
     _check_mech(tm, y)
+    B = y.shape[0]
     rate = torch.empty(B, dtype=y.dtype, device=y.device)
     _, ws = _workspace(tm, "gershgorin_rate", B, y.device)
     _raise_on(build.library().chem_gershgorin(
-        ctypes.byref(mech_view(tm)), y.data_ptr(), c.data_ptr(),
-        rate.data_ptr(), B, code, None if ws is None else ws.data_ptr(),
-        _stream(y.device)), "gershgorin_rate")
-    name = launch_name("gershgorin_rate", problem, xk=extended(tm),
+        ctypes.byref(mech_view(tm)), y.data_ptr(),
+        None if prf else c.data_ptr(), rate.data_ptr(), B,
+        _problem(problem), t.data_ptr() if prf else None,
+        ctypes.byref(profile_view(c, B)) if prf else None,
+        None if ws is None else ws.data_ptr(), _stream(y.device)),
+        "gershgorin_rate")
+    name = launch_name("gershgorin_rate", problem, xk=extended(tm), prf=prf,
                        gm=ws is not None)
     _note_workspace(name, ws)
     LAUNCHES[name] += 1

@@ -133,7 +133,7 @@ def _bind(lib):
     lib.chem_sdirk_round.argtypes = [P, P, I, I, I, I, P]
     lib.chem_equil_solve.argtypes = [P, P, I, I, P]
     lib.chem_psr_solve.argtypes = [P, P, I, P]
-    lib.chem_gershgorin.argtypes = [P, P, P, P, I, I, P, P]
+    lib.chem_gershgorin.argtypes = [P, P, P, P, I, I, P, P, P, P]
     lib.chem_smem_optin.argtypes = [I, ctypes.POINTER(I)]
     for fn in (lib.chem_rhs, lib.chem_rhs_jac, lib.chem_bordered_factor,
                lib.chem_bordered_solve, lib.chem_sdirk_round,

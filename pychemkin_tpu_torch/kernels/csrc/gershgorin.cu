@@ -1,124 +1,25 @@
-// K8 gershgorin_rate: the Gershgorin bound of the reactor's closed-form
-// Jacobian at each lane's state, y [B, N] -> rate [B] = max_i sum_j |J_ij|.
-//
-// Replaces ops/odeint.py:92 gershgorin_rate applied to the closed-form
-// Jacobian at a lane state: the scheduler's cost predictor at t = 0
-// (schedule/predictor.py:48-55), the solve profile's sample at the final
-// state (ops/odeint.py:720-725) and the sweep kernel's harvest
-// (ops/reactors.py:596-601). J is the full N x N d(rhs)/dy of the reactor
-// code, T row and column included, unscaled.
-//
-// Bound on the H100: by operations. A lane writes 8 bytes, where K2 writes
-// its N^2 doubles of J (95.6 MB at B=4096 for grisyn) to give the same
-// rate; what is left is K2's arithmetic (the rate ladder, the triple
-// products, the chain rule), whose FP64 count exceeds the bytes the lane
-// must move by two orders. Design: one 256-thread block per lane runs K2's
-// lane body (chem::chem_lane<true, PROB, XK>) with a sink that keeps J in
-// the block's shared memory (N^2 doubles, 23.3 KB for grisyn, after the
-// lane body's own); after a barrier one thread per row sums |J_ij| over j
-// in ascending order, and the block maximum takes warp shuffles and one
-// pass over the warps' partials. No atomics: the result is deterministic,
-// and a NaN anywhere in J reaches the rate (maxp keeps NaN, as jnp.max
-// does). GM puts the lane's working set (the lane body's, J, f and the
-// partials) in its slice of a device-memory workspace, for mechanisms too
-// large for shared memory.
-#include "chem.cuh"
-
-namespace {
-
-// Sink of K8: J row-major in the block's shared memory.
-struct JacToShared {
-  double* J;
-  int N;
-  __device__ void operator()(int i, int j, double v) const { J[i * N + j] = v; }
-};
-
-// Doubles of dynamic shared memory of one K8 lane: the lane body's, then
-// J [N, N], f [N] and a 32-double reduction buffer.
-__host__ __device__ inline int gershgorin_smem_doubles(const chem::MechView* m) {
-  const int N = m->KK + 1;
-  return chem::lane_smem_doubles(m->KK, m->II, m->n_tb, m->n_plog, true) +
-         N * N + N + 32;
-}
-
-template <int PROB, bool XK, bool GM>
-__global__ void gershgorin_kernel(chem::MechView m,
-                                  const double* __restrict__ y,
-                                  const double* __restrict__ cval,
-                                  double* __restrict__ rate, int B,
-                                  double* ws) {
-  const int b = blockIdx.x;
-  if (b >= B) return;
-  CHEM_LANE_BASE(GM, sm, ws, b, gershgorin_smem_doubles(&m));
-  const int N = m.KK + 1;
-  double* Js = sm + chem::lane_smem_doubles(m.KK, m.II, m.n_tb, m.n_plog, true);
-  double* fs = Js + N * N;
-  double* red = fs + N;
-  chem::chem_lane<true, PROB, XK>(m, y + (size_t)b * N, cval[b], sm, fs,
-                                  JacToShared{Js, N});
-  __syncthreads();
-  const int tid = threadIdx.x, nt = blockDim.x;
-  double v = 0.0;  // row sums are >= 0 (or NaN)
-  for (int i = tid; i < N; i += nt) {
-    const double* row = Js + i * N;
-    double s = 0.0;
-    for (int j = 0; j < N; ++j) s += fabs(row[j]);
-    v = chem::maxp(v, s);
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    v = chem::maxp(v, __shfl_down_sync(chem::FULL_MASK, v, o));
-  if ((tid & 31) == 0) red[tid >> 5] = v;
-  __syncthreads();
-  if (tid == 0) {
-    double r = red[0];
-    for (int w = 1; w < (nt >> 5); ++w) r = chem::maxp(r, red[w]);
-    rate[b] = r;
-  }
-}
-
-template <int PROB, bool XK, bool GM>
-int launch_as(const chem::MechView* m, const double* y, const double* cval,
-              double* rate, int B, double* ws, void* stream) {
-  const int threads = 256;
-  const size_t smem = GM ? 0 : sizeof(double) * gershgorin_smem_doubles(m);
-  if (!GM) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gershgorin_kernel<PROB, XK, GM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  CHEM_LAUNCH(B, threads, smem, stream, gershgorin_kernel<PROB, XK, GM>)(
-      *m, y, cval, rate, B, ws);
-  return (int)cudaGetLastError();
-}
-
-template <bool XK, bool GM>
-int launch_xk(const chem::MechView* m, const double* y, const double* cval,
-              double* rate, int B, int problem, double* ws, void* stream) {
-  switch (problem) {
-    case chem::CONP: return launch_as<chem::CONP, XK, GM>(m, y, cval, rate, B, ws, stream);
-    case chem::CONV: return launch_as<chem::CONV, XK, GM>(m, y, cval, rate, B, ws, stream);
-    case chem::CONP_TGIV:
-      return launch_as<chem::CONP_TGIV, XK, GM>(m, y, cval, rate, B, ws, stream);
-    case chem::CONV_TGIV:
-      return launch_as<chem::CONV_TGIV, XK, GM>(m, y, cval, rate, B, ws, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+// K8 gershgorin_rate: the C entry point and the constant-constraint
+// variants; the kernel and its design are in gershgorin.cuh, the PRF
+// variants in gershgorin_prf.cu.
+#include "gershgorin.cuh"
 
 // ``problem``: the reactor code (chem.cuh); ``cval`` the lanes' pressure
-// (CONP codes) or density (CONV codes); ``ws``: the workspace of the GM
-// variant (null: shared memory). One block of 256 threads a lane.
+// (CONP codes) or density (CONV codes); ``t`` and ``prf``: the lanes'
+// times and profiles (null: the constant constraint values ``cval``);
+// ``ws``: the workspace of the GM variant (null: shared memory). One
+// block of 256 threads a lane.
 extern "C" int chem_gershgorin(const chem::MechView* m, const double* y,
                                const double* cval, double* rate, int B,
-                               int problem, double* ws, void* stream) {
+                               int problem, const double* t,
+                               const chem::ProfileView* prf, double* ws,
+                               void* stream) {
   if (B <= 0) return 0;
-  const bool xk = chem::extended(m);
-  if (ws)
-    return xk ? launch_xk<true, true>(m, y, cval, rate, B, problem, ws, stream)
-              : launch_xk<false, true>(m, y, cval, rate, B, problem, ws, stream);
-  return xk ? launch_xk<true, false>(m, y, cval, rate, B, problem, ws, stream)
-            : launch_xk<false, false>(m, y, cval, rate, B, problem, ws, stream);
+  chem::GershCall c{y, cval, rate, t, prf ? *prf : chem::ProfileView{}, ws,
+                    B, problem, stream};
+  if (prf) {
+    if (t == nullptr) return (int)cudaErrorInvalidValue;
+    return chem::gershgorin_launch_prf(m, c);
+  }
+  return ws ? chem::gershgorin_launch<false, true>(m, c)
+            : chem::gershgorin_launch<false, false>(m, c);
 }

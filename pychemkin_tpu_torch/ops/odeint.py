@@ -144,12 +144,14 @@ class StepState(NamedTuple):
 
 
 class Ops(NamedTuple):
-    """The four kernel functions the integrator calls; ``t`` [B] is the
+    """The four kernel functions the integrator calls, and the stiffness
+    rate a solve profile samples at the final state; ``t`` [B] is the
     time of each lane's state (read by profiles)."""
     rhs: Callable          # (tm, y, constraint, t) -> f
     rhs_jac: Callable      # (tm, y, constraint, t) -> (f, J)
     factor: Callable       # (J, hg) -> factor
     solve: Callable        # (factor, r) -> x
+    stiffness: Callable    # (tm, y, constraint, t) -> Gershgorin rate [B]
 
 
 def _norm(x, w):
@@ -421,24 +423,38 @@ def sweep_round(ops, tm, lanes, events, rtol, budget, state: StepState,
     return state
 
 
-def sweep_finalize(state: StepState, t_end, events):
-    """Terminal classification of each lane: (event_times, event_values,
-    success, status) [B, n_ev], [B, n_ev], [B], [B]."""
+def _fail_short(state: StepState, t_end) -> StepState:
+    """Lanes short of ``t_end`` are failed: BUDGET_EXHAUSTED unless their
+    status already says why, and stalled."""
     short = state.t < t_end
-    status = torch.where(short & (state.status == int(SolveStatus.OK)),
-                         torch.full_like(state.status,
-                                         int(SolveStatus.BUDGET_EXHAUSTED)),
-                         state.status)
-    stalled = state.stalled | short
+    return state._replace(
+        status=torch.where(short & (state.status == int(SolveStatus.OK)),
+                           torch.full_like(state.status,
+                                           int(SolveStatus.BUDGET_EXHAUSTED)),
+                           state.status),
+        stalled=state.stalled | short)
+
+
+def _finish(state: StepState, t_end, t_span, events):
+    """(event_times, success) of a finished solve: a crossing never reached
+    is NaN, and a lane succeeded if it did not stall and reached
+    ``t_end - 1e-12 t_span``."""
     ev_t = state.acc_t
     if events:
         is_cross = torch.tensor([ev.kind == "crossing" for ev in events],
                                 device=ev_t.device)
         ev_t = torch.where(is_cross[None] & ~torch.isfinite(ev_t),
                            torch.full_like(ev_t, float("nan")), ev_t)
-    t_span = torch.clamp(t_end, min=1e-30)
-    success = ~stalled & (state.t >= t_end - 1e-12 * t_span)
-    return ev_t, state.acc_v, success, status
+    t_span = torch.clamp(t_span, min=1e-30)
+    return ev_t, ~state.stalled & (state.t >= t_end - 1e-12 * t_span)
+
+
+def sweep_finalize(state: StepState, t_end, events):
+    """Terminal classification of each lane: (event_times, event_values,
+    success, status) [B, n_ev], [B, n_ev], [B], [B]."""
+    state = _fail_short(state, t_end)
+    ev_t, success = _finish(state, t_end, t_end, events)
+    return ev_t, state.acc_v, success, state.status
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +467,7 @@ class ODESolution(NamedTuple):
     event accumulators [B, n_events], the counters, ``success`` (reached
     the last time without stalling), the time at exit, the stall flag,
     the SolveStatus codes and the profile extras (smallest accepted step,
-    controller step at exit; ``stiffness`` is left to the caller)."""
+    controller step at exit)."""
     ts: Any
     ys: Any
     event_times: Any
@@ -465,7 +481,6 @@ class ODESolution(NamedTuple):
     status: Any = None
     dt_min: Any = None
     dt_final: Any = None
-    stiffness: Any = None
 
 
 def odeint(ops, tm, lanes, y0, ts, events, *, rtol, max_steps_per_segment,
@@ -497,7 +512,6 @@ def odeint(ops, tm, lanes, y0, ts, events, *, rtol, max_steps_per_segment,
                         events, h0, t0=t0)
     # the state's y is y0 itself, which K5 advances in place
     ys = [y0.clone()]
-    ok, exhausted = int(SolveStatus.OK), int(SolveStatus.BUDGET_EXHAUSTED)
     for k in range(1, n_out):
         lk = lanes._replace(t_end=ts[:, k].contiguous())
         budget = state.n_steps + state.n_rejected + int(max_steps_per_segment)
@@ -506,21 +520,9 @@ def odeint(ops, tm, lanes, y0, ts, events, *, rtol, max_steps_per_segment,
         else:
             while bool(sweep_going(state, lk, budget).any()):
                 state = rounds(lk, state, budget)
-        short = state.t < lk.t_end
-        state = state._replace(
-            status=torch.where(short & (state.status == ok),
-                               torch.full_like(state.status, exhausted),
-                               state.status),
-            stalled=state.stalled | short)
+        state = _fail_short(state, lk.t_end)
         ys.append(state.y.clone())
-    ev_t = state.acc_t
-    if events:
-        is_cross = torch.tensor([ev.kind == "crossing" for ev in events],
-                                device=ev_t.device)
-        ev_t = torch.where(is_cross[None] & ~torch.isfinite(ev_t),
-                           torch.full_like(ev_t, float("nan")), ev_t)
-    t_span = torch.clamp(t_last - t0, min=1e-30)
-    success = ~state.stalled & (state.t >= t_last - 1e-12 * t_span)
+    ev_t, success = _finish(state, t_last, t_last - t0, events)
     return ODESolution(
         ts=ts, ys=torch.stack(ys, dim=1), event_times=ev_t,
         event_values=state.acc_v, n_steps=state.n_steps,

@@ -325,7 +325,9 @@ def kernel_ops(problem) -> Ops:
     a :class:`BatchArgs`)."""
     return Ops(rhs=partial(_kernel_rhs, kernels.rhs, problem),
                rhs_jac=partial(_kernel_rhs, kernels.rhs_jac, problem),
-               factor=kernels.bordered_factor, solve=kernels.bordered_solve)
+               factor=kernels.bordered_factor, solve=kernels.bordered_solve,
+               stiffness=partial(_kernel_rhs, kernels.gershgorin_rate,
+                                 problem))
 
 
 def _kernel_rhs(fn, problem, tm, y, c, t):
@@ -345,16 +347,21 @@ def _plain(i, problem, tm, y, c, t):
     return RHS_PRF_TWINS[problem][i](tm, t, y, c)
 
 
+def _plain_stiffness(problem, tm, y, c, t):
+    return gershgorin_rate(_plain(1, problem, tm, y, c, t)[1])
+
+
 def plain_ops(problem, pivot=False) -> Ops:
-    """The plain twins of K1-K4 for ``problem`` as integrator ops; with
-    ``pivot`` the Newton matrix's species block is factored with partial
-    pivoting."""
+    """The plain twins of K1-K4 and K8 for ``problem`` as integrator ops;
+    with ``pivot`` the Newton matrix's species block is factored with
+    partial pivoting."""
     rhs, rhs_jac = partial(_plain, 0, problem), partial(_plain, 1, problem)
+    stiffness = partial(_plain_stiffness, problem)
     if pivot:
         return Ops(rhs=rhs, rhs_jac=rhs_jac, factor=_factor_pivoted,
-                   solve=linalg.solve_bordered_pivoted)
+                   solve=linalg.solve_bordered_pivoted, stiffness=stiffness)
     return Ops(rhs=rhs, rhs_jac=rhs_jac, factor=linalg.factor_bordered,
-               solve=linalg.solve_bordered)
+               solve=linalg.solve_bordered, stiffness=stiffness)
 
 
 def _repeat_lanes(x, n):
@@ -402,7 +409,8 @@ def ad_ops(problem, pivot=False) -> Ops:
     rhs_jac = partial(_ad_rhs_jac, base.rhs, problem)
     if pivot:
         return Ops(rhs=base.rhs, rhs_jac=rhs_jac, factor=_factor_pivoted,
-                   solve=linalg.solve_bordered_pivoted)
+                   solve=linalg.solve_bordered_pivoted,
+                   stiffness=base.stiffness)
     return base._replace(rhs_jac=rhs_jac)
 
 
@@ -671,8 +679,7 @@ def _sweep(ops, mech, problem, energy, T0s, P0s, Y0s, t_ends, *, rtol, atol,
         "n_steps": state.n_steps, "n_rejected": state.n_rejected,
         "n_newton": state.n_newton, "dt_min": state.dt_min,
         "dt_final": state.h,
-        "stiffness": gershgorin_rate(ops.rhs_jac(
-            tm, state.y, lanes.constraint, state.t)[1])}
+        "stiffness": ops.stiffness(tm, state.y, lanes.constraint, state.t)}
 
 
 # ---------------------------------------------------------------------------
@@ -1019,11 +1026,12 @@ def _solve_batch(ops, mech, problem, energy, T0s, P0s, Y0s, t_ends, *,
         Ps = rhos * R_GAS * Ts / wbars
     prof = None
     if profile:
-        _, J = ops.rhs_jac(tm, sol.ys[:, -1].contiguous(), args, sol.t_final)
+        stiffness = ops.stiffness(tm, sol.ys[:, -1].contiguous(), args,
+                                  sol.t_final)
         prof = {"n_steps": sol.n_steps, "n_rejected": sol.n_rejected,
                 "n_newton": sol.n_newton, "dt_min": sol.dt_min,
                 "dt_final": sol.dt_final, "stalled": sol.stalled,
-                "status": sol.status, "stiffness": gershgorin_rate(J),
+                "status": sol.status, "stiffness": stiffness,
                 "rescue_rung": torch.zeros_like(sol.status)}
     return BatchSolution(times=ts, T=Ts, P=Ps, volume=Vs, Y=Ys,
                          ignition_time=ignition_time, n_steps=sol.n_steps,

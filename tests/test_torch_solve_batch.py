@@ -12,6 +12,10 @@ the JAX package's, on h2o2 with B = 8 lanes and n_out = 11.
 - The profile twins of K1/K2 (``RHS_PRF_TWINS``: f and the fused J)
   against the reference's ``_RHS`` and ``_batch_jac_core(with_rhs=True)``
   at random states and times, within 1e-12 scale-relative.
+- K8's wrapper with profiles (the stiffness rate ``solve_batch(profile=
+  True)`` samples at t_final; its twin on the CPU) against the
+  reference's ``gershgorin_rate`` of that Jacobian, on all four reactors,
+  within 1e-12 relative.
 
 The TGIV reactors' checks and the constant-profile checks against the
 sweep are in test_torch_solve_batch_tgiv.py, so that each file stays near a minute
@@ -27,7 +31,9 @@ import torch
 
 from pychemkin_tpu import mechanism as jmech
 from pychemkin_tpu.ops import jacobian as jjac
+from pychemkin_tpu.ops import odeint as jode
 from pychemkin_tpu.ops import reactors as jre
+from pychemkin_tpu_torch import kernels
 from pychemkin_tpu_torch import mechanism as tmech
 from pychemkin_tpu_torch.ops import reactors
 from pychemkin_tpu_torch.resilience.status import SolveStatus
@@ -246,3 +252,31 @@ def rec_tm(rec):
 @pytest.mark.parametrize("case", ENRG)
 def test_profile_rhs_and_jacobian_match_jax(h2o2, case):
     check_profile_twins(h2o2, case)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_profile_stiffness_matches_jax(h2o2, case):
+    """K8 with profiles on CPU tensors (its twin) is the reference's
+    Gershgorin rate of the profile Jacobian at the same (t, y)."""
+    jm, rec = h2o2
+    c = CASES[case]
+    y, t, (mass, htc, tamb), jprofs, targs = _rhs_args(jm, rec, c, 11)
+    problem, energy = c["problem"], c["energy"]
+
+    def one(tt, yy, m, h, ta):
+        args = jre.BatchArgs(jm, *jprofs, mass=m, htc=h, tamb=ta)
+        return jode.gershgorin_rate(jjac._batch_jac_core(
+            problem, energy, tt, yy, args, with_rhs=True)[1])
+
+    want = np.asarray(jax.jit(jax.vmap(one))(
+        *(jnp.asarray(a) for a in (t, y, mass, htc, tamb))))
+    code = reactors.variant(problem, energy)
+    kernels.reset_launches()
+    got = kernels.gershgorin_rate(rec_tm(rec), torch.tensor(y), targs,
+                                  problem=code, t=torch.tensor(t))
+    assert not any(kernels.LAUNCHES.values())
+    assert np.isfinite(want).all() and (want > 0).all()
+    assert _rel(got.numpy(), want) <= 1e-12
+    with pytest.raises(ValueError, match="times t"):
+        kernels.gershgorin_rate(rec_tm(rec), torch.tensor(y), targs,
+                                problem=code)
