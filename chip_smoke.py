@@ -117,8 +117,29 @@ Phases, each of which raises on failure (exit code != 0):
    chooser's storage of each kernel; K1, K2, K8 against their twins on
    64 states, K5 over one 20-attempt round on 64 lanes, K7 on 16 lanes
    from K6's guess (its twin on the CPU with the deferred reruns), and a
-   256-lane CONP/ENRG sweep with every lane OK, all
+   128-lane CONP/ENRG sweep with every lane OK, all
    through the GM instantiations (each lane in a device-memory workspace).
+
+10. the premixed flame through the object model (kernels K9-K12):
+   10a K9 (transport) against its twin on 4096 seeded states of h2o2 and
+   ch4global, its home run ``Mixture``'s transport getters then those
+   states; K10 (the flame residual) and K11 (its Jacobian blocks) against
+   their twins at the initial, a mid-solve and the converged state of
+   10b's and 10c's own solves for MIX, LEWIS, TDIF, central differencing,
+   the TGIV burner and each state's own configuration, and K12 (the
+   block-Thomas solve) on each state's Newton system, its yardstick one
+   dense ``torch.linalg.solve``; 10b ``Chemistry``, ``Stream`` and
+   ``FreelyPropagating`` on h2o2 stoichiometric H2/air at 1 atm, 298 K,
+   0-2 cm, the model's default grid controls: it must converge with Su and
+   T_max within 0.5 % of the JAX package's recorded values and Su within
+   15 % of 210 cm/s; the twins on the CPU check the card's Newton
+   direction at the initial and mid-solve states and the Newton criterion
+   at the converged one (deferred reruns); 10c ch4global: the free flame
+   gives the JAX package's outcome (no convergence) and the
+   burner-stabilized flame at a given temperature converges, its exit CO2
+   within 1 % of the JAX package's; 10d the burner TGIV flame of
+   tests/test_flame1d.py:266 and 10b's flame continued at 2 atm (Su within
+   1 % of the JAX package's).
 
 Every row of the kernel table reads its launches from the main-path run
 of its instantiation (``home``), and every kernel that a main-path run
@@ -129,7 +150,7 @@ object, the card's name and power limit from nvidia-smi, and
 Run from the repository root: ``python3 chip_smoke.py`` (``--batch`` and
 ``--t-end`` shrink phases 2-4 and 8 for a quick check; ``--phases 7`` runs
 the build, phase 3's CONP sweep and phase 7 only; ``--phases 7f``,
-``8`` (with phase 3's CONP sweep) and ``9`` that phase only).
+``8`` (with phase 3's CONP sweep), ``9`` and ``10`` that phase only).
 """
 
 from __future__ import annotations
@@ -767,6 +788,10 @@ def _twin_worker(job):
     torch.set_num_threads(1)
     kind, record, problem, energy, T0s, P0s, Y0, t_end, kw = job
     t0 = time.perf_counter()
+    if kind == "flame":
+        with torch.inference_mode():
+            out = _flame_twin_job(record, T0s)
+        return out, time.perf_counter() - t0
     tm = TorchMechanism(record, "cpu")
     with torch.inference_mode():
         if kind == "psr":
@@ -837,8 +862,10 @@ def run_twin_jobs():
         return 0.0
     t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
-    # the output-grid reruns are the longest: they start first
-    jobs = sorted(_TWIN_JOBS, key=lambda jc: jc[0][0] != "batch")
+    # the longest reruns start first: the PSR (phase 9's K7 GM, ~80 s) and
+    # the output-grid ones (phase 8, 20-85 s); a sweep's takes 15-30 s
+    first = {"psr": 0, "batch": 1}
+    jobs = sorted(_TWIN_JOBS, key=lambda jc: first.get(jc[0][0], 2))
     with ctx.Pool(min(TWIN_WORKERS, len(jobs))) as pool:
         results = pool.map(_twin_worker, [j for j, _ in jobs], chunksize=1)
     for (_, check), (res, seconds) in zip(jobs, results):
@@ -2991,7 +3018,9 @@ def solve_batch_phase(tm, B, base, reference_sweeps, reps, t_end=0.05):
 # -- phase 9: a mechanism too large for shared memory -----------------------
 
 BIG_COPIES = 8
-BIG_B = 256
+#: the sweep's lanes: 128 since phase 10 joined the script (256 before;
+#: the script's 1200 s hold the build, phases 2-10 and the twin reruns)
+BIG_B = 128
 BIG_CHECK_B = 64
 BIG_PSR_B = 16
 #: phase 9's short sweep through the host loop over K1-K4 and through K5:
@@ -3258,6 +3287,717 @@ def large_mech_phase(tm, reps):
 _CODES = ("CONP", "CONV", "CONP_TGIV", "CONV_TGIV")
 
 
+# -- phase 10: the premixed flame: K9-K12 under the object model ---------------
+
+#: K9's states (T 300-3000 K, random X with zeros and pure species)
+K9_BATCH = 4096
+#: tolerances of phase 10a, scale-relative (the CPU tests' for K10-K12)
+K9_TOL = 1e-12
+F_TOL = 1e-12
+J_TOL = 1e-10
+K12_TOL = 1e-10
+#: the card's Newton direction against the twins' (deferred CPU rerun)
+DIR_TOL = 1e-9
+#: 10b's flame speed and peak temperature against the JAX package's
+#: (tests/torch_port_cases.py JAX_FLAME_REFERENCE), and the absolute
+#: anchor of the JAX package's acceptance test (tests/test_flame1d.py:182)
+SU_REL = 0.005
+TMAX_REL = 0.005
+SU_ANCHOR = (210.0, 0.15)
+#: the flame configurations of 10a's K10/K11 checks
+FLAME_CFGS = (("mix", {}), ("lewis", dict(transport="LEWIS", lewis=1.1)),
+              ("tdif", dict(soret=True)), ("central", dict(upwind=False)),
+              ("tgiv_burner", dict(energy="TGIV", free_flame=False)))
+K9_REPLACES = "ops/transport.py:63-229"
+K10_REPLACES = "ops/flame1d.py:151"
+K11_REPLACES = "ops/flame1d.py:251"
+K12_REPLACES = "ops/blocktridiag.py:20"
+def _omega_flops(t, which):
+    """FP64 operations of one collision integral at t* (Omega(1,1)*: a
+    pow and three exps; Omega(2,2)*: a pow and two exps), an exp or pow
+    charged ``t``."""
+    return 4 * t + 12 if which == 11 else 3 * t + 10
+
+
+def _species_flops(t):
+    """One species' viscosity and conductivity at T: both integrals, the
+    square roots of T and of eps/T (eps/T ** 1.5 from the latter), NASA
+    cp and the Warnatz split; Zrot(298) is a constant of the mechanism."""
+    return _omega_flops(t, 22) + _omega_flops(t, 11) + 2 * t + 40
+
+
+def _transport_flops(KK, n_light, t=TRANSCENDENTAL):
+    """FP64 operations one K9 state needs at least: the KK species terms;
+    Wilke's KK square roots of mu_k and KK^2 ratio terms (the weight
+    ratios are constants of the mechanism); the binary coefficients once
+    per unordered pair (D_jk is symmetric, T ** 1.5 is one per state, and
+    D_km reuses them: 2 KK^2 for its sums); Theta only on the n_light rows
+    with W <= 5, one Omega(2,2)* per pair (Omega(1,1)* is D_jk's)."""
+    pairs = KK * (KK + 1) // 2 * (_omega_flops(t, 11) + 5)
+    theta = n_light * KK * (_omega_flops(t, 22) + 15)
+    return float(KK * _species_flops(t) + KK * t + 8 * KK * KK + pairs
+                 + 2 * KK * KK + theta + 10 * KK)
+
+
+def _face_flops(KK, n_light=0, t=TRANSCENDENTAL):
+    """FP64 operations of one face's fluxes at T_f: the species terms
+    and the conductivity average, the binary coefficients once per
+    unordered pair and the D_km sums (LEWIS needs fewer), the three X
+    conversions and the flux sums; with ``n_light`` (TDIF) Theta on the
+    rows with W <= 5. ``t`` = 1 gives the count of primal operations, each
+    of which a tangent carries at ~2 flops (a transcendental's tangent
+    reuses its value)."""
+    pairs = KK * (KK + 1) // 2 * (_omega_flops(t, 11) + 5)
+    theta = n_light * KK * (_omega_flops(t, 22) + 15)
+    return float(KK * _species_flops(t) + pairs + 2 * KK * KK + theta
+                 + 40 * KK)
+
+
+def _n_light(tm):
+    """The species with W <= 5, the rows on which Theta is not zero."""
+    return int((tm.wt <= 5.0).sum())
+
+
+def _flame_k9(tms, reps, names_wt):
+    """10a, K9: ``Mixture``'s transport getters (the object model on the
+    card), then K9 on K9_BATCH seeded states of h2o2 and of ch4global, the
+    launch counters set to 0 before and read after (K9's home run,
+    ``10a``); each against its twin on the card within K9_TOL, timed, with
+    its bound. Returns (row, {"10a": launches})."""
+    import numpy as np
+    import torch
+    import pychemkin_tpu_torch as ptt
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.mechanism import DATA_DIR
+    from pychemkin_tpu_torch.ops import transport
+    cases = _port_cases()
+    f64 = dict(dtype=torch.float64, device="cuda")
+    states = {}
+    for mech in ("h2o2", "ch4global"):
+        names, wt = names_wt[mech]
+        T, P, X = cases.transport_states(names, wt, K9_BATCH, 7)
+        states[mech] = [torch.tensor(a, **f64) for a in (T, P, X)]
+    chem = ptt.Chemistry(chem=os.path.join(DATA_DIR, "h2o2.inp"),
+                         tran=os.path.join(DATA_DIR, "tran_h2o2.dat"))
+    chem.preprocess()
+    mix = ptt.Mixture(chem)
+    mix.temperature, mix.pressure = 1500.0, 2.0 * P_ATM
+    mix.X = {"H2": 2.0, "O2": 1.0, "N2": 3.76, "H2O": 0.4, "OH": 0.01}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    getters = {g: getattr(mix, g)() for g in (
+        "species_Visc", "species_Cond", "species_Diffusion_Coeffs",
+        "mixture_viscosity", "mixture_conductivity",
+        "mixture_diffusion_coeffs", "mixture_thermal_diffusion_coeffs")}
+    outs = {m: kernels.transport_props(tms[m], *states[m]) for m in states}
+    torch.cuda.synchronize()
+    runs = {"10a": dict(kernels.LAUNCHES)}
+    assert runs["10a"]["transport_props"] == len(getters) + 2, runs["10a"]
+    assert all(np.all(np.isfinite(np.asarray(v))) for v in getters.values())
+    errs, abs_err = {}, 0.0
+    for mech, out in outs.items():
+        twin = transport.transport_props(tms[mech], *states[mech])
+        for f in twin._fields:
+            a, b = getattr(out, f), getattr(twin, f)
+            d = (a - b).abs().reshape(K9_BATCH, -1).amax(1)
+            sc = b.abs().reshape(K9_BATCH, -1).amax(1).clamp_min(1e-300)
+            errs[f"{mech}.{f}"] = float((d / sc).max())
+            abs_err = max(abs_err, float(d.max()))
+    worst = max(errs.values())
+    print(f"10a K9: {len(getters)} Mixture getters and {K9_BATCH} states of "
+          f"h2o2 and ch4global; worst scale-rel {worst:.3e} "
+          f"({max(errs, key=errs.get)})", flush=True)
+    assert worst <= K9_TOL, f"K9 vs twin {errs}"
+    tm = tms["h2o2"]
+    st = states["h2o2"]
+    ms = _time_ms(lambda: kernels.transport_props(tm, *st), reps)
+    pms = _time_ms(lambda: transport.transport_props(tm, *st),
+                   max(reps // 4, 2))
+    KK = tm.KK
+    bms, by = _bound_ms(K9_BATCH * 8 * ((KK + 2) + (KK * KK + 4 * KK + 2)),
+                        K9_BATCH * _transport_flops(KK, _n_light(tm)))
+    row = _row("transport_props", "transport.cu", K9_REPLACES, home="10a",
+               mech="h2o2", batch=K9_BATCH, max_abs_err=abs_err,
+               scale_rel_err=worst, err_by_field=errs, ms=ms, plain_ms=pms,
+               bound_ms=bms, bound_by=by, library_ms=None)
+    _print_row(row)
+    return row, runs
+
+
+def _flame_data(tm, cfg_kw, u, x, Y_in, T_given, i_fix, mdot):
+    import torch
+    from pychemkin_tpu_torch.ops import flame1d
+    f64 = dict(dtype=torch.float64, device=u.device)
+    cfg = flame1d.FlameConfig(**cfg_kw)
+    data = flame1d.FlameData(
+        x=torch.as_tensor(x, **f64), P=P_ATM,
+        T_in=_port_cases().FLAME_T_IN,
+        Y_in=torch.as_tensor(Y_in, **f64), mdot_in=mdot, T_fix=400.0,
+        i_fix=int(i_fix), T_given=torch.as_tensor(T_given, **f64))
+    return cfg, data
+
+
+def _rel(a, b):
+    """Scale-relative error per grid point (leading axis), max over points,
+    and the max absolute error."""
+    d = (a - b).abs().reshape(a.shape[0], -1).amax(1)
+    s = b.abs().reshape(b.shape[0], -1).amax(1).clamp_min(1e-300)
+    return float((d / s).max()), float(d.max())
+
+
+def _f_rel(F, F_t, blk_t, u):
+    """The residual's error relative to the size of its terms: per entry
+    |F - F_t| over sum_j |dF/du_j| |u_j| (the twin's blocks at the state),
+    max over entries, and the max absolute error. Near convergence F is a
+    small difference of large terms (convection, diffusion, chemistry), so
+    a scale of F itself would measure rounding against the difference."""
+    Bb, Ab, Cb = (b.abs() for b in blk_t)
+    au = u.abs()[..., None]
+    sc = (Ab @ au)[..., 0]
+    sc[1:] += (Bb[1:] @ au[:-1])[..., 0]
+    sc[:-1] += (Cb[:-1] @ au[1:])[..., 0]
+    d = (F - F_t).abs()
+    return float((d / sc.clamp_min(1e-300)).max()), float(d.max())
+
+
+def _w_rel(x, x_t, u, cfg):
+    """A Newton direction's error in the Newton's own weighted norm
+    (weights atol + rtol |u|): RMS((x - x_t) / w) over RMS(x_t / w)."""
+    w = cfg.ss_atol + cfg.ss_rtol * u.abs()
+    num = ((x - x_t) / w).pow(2).mean().sqrt()
+    den = (x_t / w).pow(2).mean().sqrt().clamp_min(1e-300)
+    return float(num / den), float((x - x_t).abs().max())
+
+
+def _flame_kernel_rows(tm, mech, states, reps, home):
+    """10a, K10-K12 on the card against their twins on the card at the
+    flame's own states ``states`` ({label: (cfg, u, x, Y_in, T_given,
+    i_fix, mdot)}; the initial, a mid-solve and the converged state of
+    the path's solve, with the configuration the path solved there) for
+    every configuration of FLAME_CFGS: F within F_TOL of the size of its
+    terms (:func:`_f_rel`), the blocks within J_TOL per point; K12 on the
+    path's Newton system at each state (K11's blocks, -K10, the state's
+    own configuration) within K12_TOL of the twin's block Thomas in the
+    Newton's weighted norm (:func:`_w_rel`); K12's yardstick is one
+    ``torch.linalg.solve`` of the assembled dense [N M, N M] system. Timed at the largest state with its
+    configuration. Returns the three rows (K12's only for h2o2)."""
+    import dataclasses
+    import torch
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.ops import blocktridiag, flame1d
+    errs = {"F": {}, "J": {}}
+    abs_err = {"F": 0.0, "J": 0.0}
+    k12_card, k12_jobs = {}, []
+    xk = kernels.extended(tm)
+    n_res = kernels.launch_name("flame_residual", xk=xk)
+    n_jac = kernels.launch_name("flame_jac", xk=xk)
+    big = max(states, key=lambda k: len(states[k][2]))
+    for label, (cfg_own, u, x, Y_in, T_given, i_fix, mdot) in states.items():
+        for cname, cfg_kw in FLAME_CFGS + (("own", None),):
+            cfg, data = _flame_data(
+                tm, cfg_kw if cfg_kw is not None else
+                dataclasses.asdict(cfg_own), u, x, Y_in, T_given, i_fix,
+                mdot)
+            res, jac = flame1d.make_residual(tm, cfg)
+            F = _launched(n_res, lambda: kernels.flame_residual(
+                tm, cfg, u, data))
+            blk = _launched(n_jac, lambda: kernels.flame_jac(
+                tm, cfg, u, data))
+            F_t = res(u, data)
+            blk_t = jac(u, data)
+            key = f"{label}/{cname}"
+            errs["F"][key], a = _f_rel(F, F_t, blk_t, u)
+            abs_err["F"] = max(abs_err["F"], a)
+            e = [_rel(b, bt) for b, bt in zip(blk, blk_t)]
+            errs["J"][key] = max(v[0] for v in e)
+            abs_err["J"] = max(abs_err["J"], max(v[1] for v in e))
+            if cname == "own":
+                d = (-F).contiguous()
+                xk12 = _launched("block_thomas", lambda: kernels.block_thomas(
+                    *blk, d))
+                # the twin on the card (cuSOLVER's LU, another rounding
+                # order) for the record; the check is the CPU twin's
+                k12_card[label] = _w_rel(
+                    xk12, blocktridiag.solve(*blk, d), u, cfg)[0]
+                k12_jobs.append((label, blk, d, xk12, u, cfg))
+    worst = {k: max(v.values()) for k, v in errs.items()}
+    print(f"10a {mech} K10/K11 vs twins at {list(states)} x "
+          f"{[c for c, _ in FLAME_CFGS]} and the states' own "
+          f"configurations: worst {worst}; K12 at the states' Newton "
+          f"systems vs the card's twin (cuSOLVER), weighted: {k12_card}",
+          flush=True)
+    assert worst["F"] <= F_TOL, f"K10 {mech} {errs['F']}"
+    assert worst["J"] <= J_TOL, f"K11 {mech} {errs['J']}"
+    # times at the largest state, with its own configuration
+    cfg_own, u, x, Y_in, T_given, i_fix, mdot = states[big]
+    cfg, data = _flame_data(tm, dataclasses.asdict(cfg_own), u, x, Y_in,
+                            T_given, i_fix, mdot)
+    res, jac = flame1d.make_residual(tm, cfg)
+    N, M = u.shape
+    KK = tm.KK
+    blk = kernels.flame_jac(tm, cfg, u, data)
+    d = (-kernels.flame_residual(tm, cfg, u, data)).contiguous()
+    t = {"K10": _time_ms(lambda: kernels.flame_residual(tm, cfg, u, data),
+                         reps),
+         "K10_twin": _time_ms(lambda: res(u, data), max(reps // 10, 2)),
+         "K11": _time_ms(lambda: kernels.flame_jac(tm, cfg, u, data), reps),
+         "K11_twin": _time_ms(lambda: jac(u, data), 2)}
+    chem = _rate_flops(tm, False)
+    chem_j = _rate_flops(tm, True)
+    light = _n_light(tm) if cfg.soret else 0
+    face = _face_flops(KK, light)
+    rows = []
+    bms, by = _bound_ms(8 * (2 * N * M + 2 * N + KK),
+                        (N - 1) * face + (N - 2) * (chem + 20 * M))
+    rows.append(_row(n_res, "flame_residual.cu", K10_REPLACES, home=home,
+                     mech=mech, grid_points=N, max_abs_err=abs_err["F"],
+                     scale_rel_err=worst["F"], err_by_state=errs["F"],
+                     ms=t["K10"], plain_ms=t["K10_twin"], bound_ms=bms,
+                     bound_by=by, library_ms=None))
+    # K11: each face once, with the 2 M tangents of its two points at ~2
+    # flops per primal operation; each interior point's own terms with
+    # its 3 M tangents, and the closed-form chemistry J
+    tangents = (N - 1) * 2 * M * 2 * _face_flops(KK, light, t=1.0)
+    stencil = (N - 2) * (chem_j + 20 * M * (1 + 3 * M * 2))
+    bms, by = _bound_ms(8 * (N * M + 2 * N + KK + 3 * N * M * M),
+                        (N - 1) * face + tangents + stencil)
+    rows.append(_row(n_jac, "flame_jac.cu", K11_REPLACES, home=home,
+                     mech=mech, grid_points=N, max_abs_err=abs_err["J"],
+                     scale_rel_err=worst["J"], err_by_state=errs["J"],
+                     ms=t["K11"], plain_ms=t["K11_twin"], bound_ms=bms,
+                     bound_by=by, library_ms=None))
+    if mech == "h2o2":
+        A = torch.zeros(N * M, N * M, dtype=u.dtype, device=u.device)
+        Bb, Ab, Cb = blk
+        for i in range(N):
+            A[i * M:(i + 1) * M, i * M:(i + 1) * M] = Ab[i]
+            if i > 0:
+                A[i * M:(i + 1) * M, (i - 1) * M:i * M] = Bb[i]
+            if i < N - 1:
+                A[i * M:(i + 1) * M, (i + 1) * M:(i + 2) * M] = Cb[i]
+        rhs = d.reshape(-1, 1)
+        ms12 = _time_ms(lambda: kernels.block_thomas(*blk, d), reps)
+        pms12 = _time_ms(lambda: blocktridiag.solve(*blk, d), 2)
+        lib_ms = _time_ms(lambda: torch.linalg.solve(A, rhs), reps)
+        lib_rel = _w_rel(kernels.block_thomas(*blk, d),
+                         torch.linalg.solve(A, rhs).reshape(N, M), u, cfg)[0]
+        flops = N * (2.0 * M ** 3 + 2 * M * M + M * M * (2 * M + 1)
+                     + M * M * (M + 1)) + 2.0 * N * M * M
+        bms, by = _bound_ms(8 * (3 * N * M * M + 2 * N * M), flops)
+        row12 = _row("block_thomas", "block_thomas.cu", K12_REPLACES,
+                     home=home, mech=mech, grid_points=N,
+                     max_abs_err=float("nan"), scale_rel_err=float("nan"),
+                     err_by_state={}, err_vs_card_twin=k12_card, ms=ms12,
+                     plain_ms=pms12, bound_ms=bms, bound_by=by,
+                     library_ms=lib_ms,
+                     library="torch.linalg.solve of the dense "
+                             f"[{N * M}, {N * M}] system",
+                     library_rel_err=lib_rel)
+        rows.append(row12)
+        for job in k12_jobs:
+            _defer_k12_twin(row12, *job)
+    for r in rows:
+        _print_row(r)
+    return rows
+
+
+class _FlameRecorder:
+    """Wraps ``kernels.flame.flame_jac`` during a flame run and keeps the
+    (u, data, cfg) of the first call and of the first call on each new
+    grid size: the path's initial and mid-solve states."""
+
+    def __init__(self):
+        self.calls = []
+        self.sizes = set()
+
+    def __enter__(self):
+        from pychemkin_tpu_torch.kernels import flame as kf
+        self._orig = kf.flame_jac
+
+        def wrapped(tm, cfg, u, data):
+            if u.shape[0] not in self.sizes:
+                self.sizes.add(u.shape[0])
+                self.calls.append((cfg, u.clone(), data))
+            return self._orig(tm, cfg, u, data)
+        kf.flame_jac = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from pychemkin_tpu_torch.kernels import flame as kf
+        kf.flame_jac = self._orig
+
+
+def _state_of(cfg, u, data):
+    """(cfg, u, x, Y_in, T_given, i_fix, mdot) of a recorded flame
+    call."""
+    return (cfg, u, data.x, data.Y_in, data.T_given, data.i_fix,
+            data.mdot_in)
+
+
+def _run_free_flame(mech, label):
+    """Chemistry, Stream and FreelyPropagating (FLAME_CASES[mech] on the
+    model's default grid controls, MIX) on the card, the launch counters
+    set to 0 just before run() and read just after. Returns (the model,
+    the recorder, launches, wall seconds)."""
+    import torch
+    import pychemkin_tpu_torch as ptt
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.mechanism import DATA_DIR
+    from pychemkin_tpu_torch.models import FreelyPropagating
+    cases = _port_cases()
+    tran = {"h2o2": "tran_h2o2.dat", "ch4global": "tran_ch4.dat"}[mech]
+    chem = ptt.Chemistry(chem=os.path.join(DATA_DIR, mech + ".inp"),
+                         tran=os.path.join(DATA_DIR, tran))
+    chem.preprocess()
+    inlet = ptt.Stream(chem, label="fuel")
+    inlet.pressure = P_ATM
+    inlet.temperature = cases.FLAME_T_IN
+    inlet.X = cases.FLAME_CASES[mech]["recipe"]
+    inlet.mass_flowrate = 0.03
+    fl = FreelyPropagating(inlet)
+    fl.start_position = 0.0
+    fl.end_position = cases.FLAME_CASES[mech]["x_end"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _FlameRecorder() as rec:
+        rc = fl.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    assert rc == 0 or mech != "h2o2", f"{label}: run() returned {rc}"
+    return fl, rec, launches, wall
+
+
+def _flame_summary(label, fl, launches, wall):
+    # the last solve's report (run() and continuation() both leave it)
+    rep = fl._solution.report if fl._solution is not None else {}
+    keys = ("equil_solve", "transport_props", "flame_residual",
+            "flame_residual_xk", "flame_jac", "flame_jac_xk", "block_thomas")
+    out = dict(wall_s=wall, converged=bool(rep.get("converged")),
+               n_points=rep.get("n_points"), n_regrids=rep.get("n_regrids"),
+               n_newton=rep.get("n_newton"), n_ts_steps=rep.get("n_ts_steps"),
+               launches={k: launches.get(k, 0) for k in keys})
+    if fl.runstatus == 0:
+        sol = fl.process_solution()
+        out["T_max"] = float(sol.T.max())
+        if hasattr(fl, "get_flame_speed"):
+            out["flame_speed"] = float(fl.get_flame_speed())
+    print(f"{label}: {out}", flush=True)
+    return out
+
+
+def _defer_flame_twin(tag, tm, cfg, u, x, data, converged_state):
+    """A deferred CPU rerun of the flame twins at the card's state: at the
+    converged state the twins' step norm from u must be below 1 (the
+    Newton criterion); at the initial and mid-solve states the card's
+    Newton direction (K11, K10, K12) must match the twins' within DIR_TOL
+    in the Newton's weighted norm (:func:`_w_rel`)."""
+    import dataclasses
+    import numpy as np
+    from pychemkin_tpu_torch import kernels
+    Bb, Ab, Cb = kernels.flame_jac(tm, cfg, u, data)
+    F = kernels.flame_residual(tm, cfg, u, data)
+    du = kernels.block_thomas(Bb, Ab, Cb, (-F).contiguous())
+    payload = dict(cfg=dataclasses.asdict(cfg), u=u.cpu().numpy(),
+                   x=data.x.cpu().numpy(), Y_in=data.Y_in.cpu().numpy(),
+                   T_given=data.T_given.cpu().numpy(), P=data.P,
+                   T_in=data.T_in, mdot_in=data.mdot_in, T_fix=data.T_fix,
+                   i_fix=data.i_fix)
+    mine = du.cpu().numpy()
+
+    def check(res, seconds):
+        if converged_state:
+            print(f"{tag}: twins' step norm at the card's converged state "
+                  f"{res['norm']:.3e} ({seconds:.1f} s)", flush=True)
+            assert res["norm"] < 1.0, f"{tag}: twin norm {res['norm']}"
+            _TWIN_RESULTS[tag] = dict(norm=res["norm"])
+        else:
+            w = cfg.ss_atol + cfg.ss_rtol * np.abs(payload["u"])
+            err = float(np.sqrt(np.mean(((mine - res["du"]) / w) ** 2))
+                        / max(np.sqrt(np.mean((res["du"] / w) ** 2)),
+                              1e-300))
+            print(f"{tag}: card's Newton direction vs the twins' "
+                  f"{err:.3e} in the Newton's weighted norm ({seconds:.1f} "
+                  "s)", flush=True)
+            assert err <= DIR_TOL, f"{tag}: direction {err}"
+            _TWIN_RESULTS[tag] = dict(direction=err)
+    _defer_twin(("flame", tm.record, None, None, payload, None, None, None,
+                 None), check)
+
+
+def _defer_k12_twin(row, label, blk, d, x, u, cfg):
+    """K12's check: the card's solution ``x`` of the Newton system (blk, d)
+    at ``label``'s state against the plain block Thomas on the CPU (LAPACK's
+    partially pivoted LU per block, the reference's CPU configuration),
+    within K12_TOL in the Newton's weighted norm; fills ``row``'s
+    errors."""
+    import numpy as np
+    payload = dict(k12=[b.cpu().numpy() for b in blk] + [d.cpu().numpy()])
+    mine = x.cpu().numpy()
+    w = cfg.ss_atol + cfg.ss_rtol * np.abs(u.cpu().numpy())
+
+    def check(res, seconds):
+        xt = res["x"]
+        err = float(np.sqrt(np.mean(((mine - xt) / w) ** 2))
+                    / max(np.sqrt(np.mean((xt / w) ** 2)), 1e-300))
+        row["err_by_state"][label] = err
+        row["scale_rel_err"] = max(v for v in row["err_by_state"].values())
+        a = float(np.abs(mine - xt).max())
+        row["max_abs_err"] = a if np.isnan(row["max_abs_err"]) else max(
+            row["max_abs_err"], a)
+        print(f"K12 at {label}: the card's solve vs the CPU twin {err:.3e} "
+              f"in the Newton's weighted norm ({seconds:.1f} s)", flush=True)
+        assert err <= K12_TOL, f"K12 {label}: {err}"
+    _defer_twin(("flame", None, None, None, payload, None, None, None, None),
+                check)
+
+
+def _flame_twin_job(record, payload):
+    """The CPU side of :func:`_defer_flame_twin` (the twins' Newton
+    direction and step norm at the payload's state) and of
+    :func:`_defer_k12_twin` (the plain block Thomas of the payload's
+    system)."""
+    import torch
+    from pychemkin_tpu_torch.mechanism import TorchMechanism
+    from pychemkin_tpu_torch.ops import blocktridiag, flame1d
+    if "k12" in payload:
+        B, A, C, d = (torch.as_tensor(a) for a in payload["k12"])
+        return dict(x=blocktridiag.solve(B, A, C, d).numpy())
+    tm = TorchMechanism(record, "cpu")
+    cfg = flame1d.FlameConfig(**payload["cfg"])
+    t = {k: torch.as_tensor(payload[k]) for k in ("u", "x", "Y_in",
+                                                 "T_given")}
+    data = flame1d.FlameData(x=t["x"], P=payload["P"], T_in=payload["T_in"],
+                             Y_in=t["Y_in"], mdot_in=payload["mdot_in"],
+                             T_fix=payload["T_fix"], i_fix=payload["i_fix"],
+                             T_given=t["T_given"])
+    res, jac = flame1d.make_residual(tm, cfg)
+    u = t["u"]
+    du = blocktridiag.solve(*jac(u, data), -res(u, data))
+    w = cfg.ss_atol + cfg.ss_rtol * u.abs()
+    return dict(du=du.numpy(), norm=float(((du / w) ** 2).mean().sqrt()))
+
+
+def flame_phase(tms, reps):
+    """Phase 10: 10a K9 (its home run: Mixture's getters and 4096 states);
+    10b the h2o2 free flame through Chemistry, Stream and FreelyPropagating
+    on the card (converges; Su and T_max within SU_REL/TMAX_REL of the
+    JAX package's recorded values, Su within 15 % of 210 cm/s), K10-K12
+    held against their twins on the card at the path's initial, mid-solve
+    and converged states (10a's flame rows, home ``10b_flame``), the twins
+    on the CPU at the card's states in the deferred reruns; 10c the
+    ch4global case (see JAX_FLAME_REFERENCE); 10d the burner-stabilized
+    TGIV flame of tests/test_flame1d.py:266 and continuation() of 10b's
+    flame at 2 atm. Returns (rows, {label: launches}, summary)."""
+    import numpy as np
+    import torch
+    cases = _port_cases()
+    ref = cases.JAX_FLAME_REFERENCE
+    names_wt = {m: (tms[m].record.species_names, np.asarray(tms[m].record.wt))
+                for m in ("h2o2", "ch4global")}
+    rows, runs, summary = [], {}, {}
+    t10 = time.perf_counter()
+    with torch.inference_mode():
+        row, r = _flame_k9(tms, reps, names_wt)
+    rows.append(row)
+    runs.update(r)
+    print(f"phase 10a K9: {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # 10b: the main path
+    t0 = time.perf_counter()
+    fl, rec, launches, wall = _run_free_flame("h2o2", "10b")
+    runs["10b_flame"] = launches
+    s = summary["10b"] = _flame_summary("10b h2o2 free flame", fl, launches,
+                                        wall)
+    r_h = ref["h2o2"]
+    assert s["converged"], "10b: the h2o2 free flame did not converge"
+    su_rel = abs(s["flame_speed"] - r_h["su"]) / r_h["su"]
+    tmax_rel = abs(s["T_max"] - r_h["T_max"]) / r_h["T_max"]
+    anchor = abs(s["flame_speed"] - SU_ANCHOR[0]) / SU_ANCHOR[0]
+    s.update(su_rel_jax=su_rel, T_max_rel_jax=tmax_rel, su_rel_210=anchor,
+             jax=r_h)
+    print(f"10b: Su {s['flame_speed']:.4f} cm/s (JAX {r_h['su']:.4f}, rel "
+          f"{su_rel:.2e}; 210 cm/s anchor rel {anchor:.3f}), T_max "
+          f"{s['T_max']:.2f} K (JAX {r_h['T_max']:.2f}, rel {tmax_rel:.2e})",
+          flush=True)
+    assert su_rel <= SU_REL, f"10b: Su vs JAX {su_rel}"
+    assert tmax_rel <= TMAX_REL, f"10b: T_max vs JAX {tmax_rel}"
+    assert anchor <= SU_ANCHOR[1], f"10b: Su vs 210 cm/s {anchor}"
+    for k in ("equil_solve", "transport_props", "flame_residual",
+              "flame_jac", "block_thomas"):
+        if k != "transport_props":
+            assert launches[k] > 0, f"10b: {k} not launched"
+    sol = fl._solution
+    tm = fl._effective_tm()
+    st = {}
+    (cfg0, u0, d0) = rec.calls[0]
+    st["initial"] = _state_of(cfg0, u0, d0)
+    cfg_m, u_m, d_m = rec.calls[len(rec.calls) // 2]
+    st["mid"] = _state_of(cfg_m, u_m, d_m)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    u_c = torch.as_tensor(sol.u, **f64)
+    x_c = torch.as_tensor(sol.x, **f64)
+    i_fix = int(np.clip(np.argmin(np.abs(sol.T - 400.0)), 1,
+                        len(sol.x) - 2))
+    cfg_c, _, d_last = rec.calls[-1]
+    d_c = d_last if len(d_last.x) == len(sol.x) else d_last._replace(
+        x=x_c, i_fix=i_fix, T_given=torch.zeros_like(x_c))
+    st["converged"] = _state_of(cfg_c, u_c, d_c)
+    with torch.inference_mode():
+        rows.extend(_flame_kernel_rows(tm, "h2o2", st, reps, "10b_flame"))
+        for tag, (cfg, u, data), conv in (
+                ("10b_initial", rec.calls[0], False),
+                ("10b_mid", rec.calls[len(rec.calls) // 2], False),
+                ("10b_converged", (cfg_c, u_c, d_c), True)):
+            _defer_flame_twin(tag, tm, cfg, u, data.x, data, conv)
+    print(f"phase 10b: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 10c: ch4global (the XK lane body in a flame)
+    t0 = time.perf_counter()
+    summary["10c"] = flame_ch4_phase(tms, reps, rows, runs)
+    print(f"phase 10c: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 10d: the burner TGIV flame, and 10b's flame continued at 2 atm
+    t0 = time.perf_counter()
+    summary["10d"] = flame_burner_phase(fl, ref)
+    print(f"phase 10d: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+    return rows, runs, summary
+
+
+def flame_ch4_phase(tms, reps, rows, runs):
+    """Phase 10c: ch4global (fractional orders: K10/K11's XK lane body).
+    The free flame of FLAME_CASES through FreelyPropagating must give the
+    JAX package's outcome (JAX_FLAME_REFERENCE: it does not converge
+    there); the burner-stabilized flame at the given temperature
+    (BurnedStabilized_GivenTemperature, FLAME_CH4_BURNER), which the JAX
+    package converges, must converge with the exit CO2 within 1 % of the
+    JAX package's; K10/K11 XK against their twins at that path's
+    initial, mid-solve and converged states (home ``10c_flame``)."""
+    import numpy as np
+    import torch
+    import pychemkin_tpu_torch as ptt
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.mechanism import DATA_DIR
+    from pychemkin_tpu_torch.models import BurnedStabilized_GivenTemperature
+    cases = _port_cases()
+    ref = cases.JAX_FLAME_REFERENCE["ch4global"]
+    fl, _, launches, wall = _run_free_flame("ch4global", "10c")
+    runs["10c_free"] = launches
+    out = {"free": _flame_summary("10c ch4global free flame", fl, launches,
+                                  wall)}
+    assert out["free"]["converged"] == (ref["rc"] == 0), \
+        f"10c: free flame converged {out['free']['converged']}, JAX rc {ref}"
+    b = cases.FLAME_CH4_BURNER
+    chem = ptt.Chemistry(chem=os.path.join(DATA_DIR, "ch4global.inp"),
+                         tran=os.path.join(DATA_DIR, "tran_ch4.dat"))
+    chem.preprocess()
+    inlet = ptt.Stream(chem, label="fuel")
+    inlet.pressure = P_ATM
+    inlet.temperature = cases.FLAME_T_IN
+    inlet.X = cases.FLAME_CASES["ch4global"]["recipe"]
+    inlet.mass_flowrate = b["mdot"]
+    inlet.flowarea = 1.0
+    fb = BurnedStabilized_GivenTemperature(inlet)
+    fb.start_position, fb.end_position = 0.0, b["x_end"]
+    xs = np.linspace(0.0, b["x_end"], 25)
+    fb.set_temperature_profile(xs, cases.flame_tprof(xs, b["T_burnt"]))
+    fb.set_max_grid_points(b["ntot"])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _FlameRecorder() as rec:
+        rc = fb.run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    runs["10c_flame"] = launches
+    s = out["burner"] = _flame_summary("10c ch4global burner TGIV", fb,
+                                       launches, time.perf_counter() - t0)
+    r_b = cases.JAX_FLAME_REFERENCE["ch4global_burner"]
+    assert rc == 0 and s["converged"], "10c: the ch4global burner failed"
+    sol = fb._solution
+    iCO2 = list(chem.species_symbols).index("CO2")
+    s.update(n_points_jax=r_b["n_points"], exit_Y_CO2=float(sol.Y[-1, iCO2]),
+             exit_Y_CO2_jax=r_b["exit_Y_CO2"])
+    # the outcome: both converge, the exit CO2 within 1 % (the port's
+    # initial grid drops the reference's node one ulp from another,
+    # ops/flame1d.py:_distinct, so the grids differ by that node)
+    s["exit_Y_CO2_rel_jax"] = abs(s["exit_Y_CO2"] - r_b["exit_Y_CO2"]) / \
+        r_b["exit_Y_CO2"]
+    assert s["exit_Y_CO2_rel_jax"] <= 0.01, f"10c: {s}"
+    assert launches["flame_jac_xk"] > 0 and launches["flame_residual_xk"] > 0
+    tm = fb._effective_tm()
+    st = {"initial": _state_of(*rec.calls[0]),
+          "mid": _state_of(*rec.calls[len(rec.calls) // 2])}
+    cfg_l, _, d_l = rec.calls[-1]
+    if len(d_l.x) == len(sol.x):
+        st["converged"] = _state_of(cfg_l, torch.as_tensor(
+            sol.u, dtype=torch.float64, device="cuda"), d_l)
+    with torch.inference_mode():
+        rows.extend(_flame_kernel_rows(tm, "ch4global", st, reps,
+                                       "10c_flame"))
+    return out
+
+
+def flame_burner_phase(fl_free, ref):
+    """Phase 10d: the burner-stabilized TGIV flame of
+    tests/test_flame1d.py:266 through BurnedStabilized_GivenTemperature
+    (converges; exit H2O above 0.15, exit T above 1400 K, T at 0.6 cm
+    within (298, 1500] K), and continuation() of 10b's free flame at
+    FLAME_CNTN_P (converges; Su within 1 % of the JAX package's
+    continuation)."""
+    import numpy as np
+    import torch
+    import pychemkin_tpu_torch as ptt
+    from pychemkin_tpu_torch import kernels
+    from pychemkin_tpu_torch.models import BurnedStabilized_GivenTemperature
+    cases = _port_cases()
+    chem = fl_free.chemistry
+    inlet = ptt.Stream(chem, label="fuel")
+    inlet.pressure = P_ATM
+    inlet.temperature = 298.0
+    inlet.X = cases.FLAME_CASES["h2o2"]["recipe"]
+    inlet.mass_flowrate = 0.03
+    inlet.flowarea = 1.0
+    fb = BurnedStabilized_GivenTemperature(inlet)
+    fb.start_position, fb.end_position = 0.0, 1.2
+    xs = np.linspace(0.0, 1.2, 25)
+    fb.set_temperature_profile(xs, cases.flame_tprof(xs, 1500.0))
+    fb.set_max_grid_points(40)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = fb.run()
+    torch.cuda.synchronize()
+    out = {"burner": _flame_summary("10d h2o2 burner TGIV", fb,
+                                    dict(kernels.LAUNCHES),
+                                    time.perf_counter() - t0)}
+    assert rc == 0, "10d: the burner TGIV flame failed"
+    h2o = fb.get_solution_variable_profile("H2O")
+    T_exit = fb.get_solution_stream_at_grid(-1).temperature
+    T_mid = fb.get_solution_stream(0.6).temperature
+    out["burner"].update(exit_Y_H2O=float(h2o[-1]), exit_T=T_exit,
+                         T_at_0p6=T_mid)
+    assert h2o[-1] > 0.15 and T_exit > 1400.0 and 298.0 < T_mid <= 1500.0, \
+        out["burner"]
+    fl_free.pressure = cases.FLAME_CNTN_P
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = fl_free.continuation()
+    torch.cuda.synchronize()
+    c = out["continuation"] = _flame_summary(
+        "10d continuation at 2 atm", fl_free, dict(kernels.LAUNCHES),
+        time.perf_counter() - t0)
+    assert rc == 0 and c["converged"], "10d: continuation failed"
+    su_jax = ref["h2o2"]["cntn_su"]
+    c.update(su_jax=su_jax,
+             su_rel_jax=abs(c["flame_speed"] - su_jax) / su_jax)
+    print(f"10d: Su at 2 atm {c['flame_speed']:.4f} cm/s (JAX {su_jax:.4f}"
+          f", rel {c['su_rel_jax']:.2e})", flush=True)
+    assert c["su_rel_jax"] <= 0.01, f"10d: continuation Su {c}"
+    return out
+
+
 def _launch_name_of(mangled):
     import re
     from pychemkin_tpu_torch.kernels import launch_name
@@ -3290,6 +4030,14 @@ def _launch_name_of(mangled):
                   mangled)
     if m:
         return launch_name(m.group(1), gm=m.group(2) == "1")
+    m = re.search(r"flame_kernelILb([01])ELb([01])E", mangled)
+    if m:
+        return launch_name("flame_jac" if m.group(1) == "1"
+                           else "flame_residual", xk=m.group(2) == "1")
+    if "transport_kernel" in mangled:
+        return "transport_props"
+    if "block_thomas_kernel" in mangled:
+        return "block_thomas"
     return None
 
 
@@ -3323,12 +4071,12 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--t-end", type=float, default=0.05)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--phases", choices=("all", "7", "7f", "8", "9"),
+    ap.add_argument("--phases", choices=("all", "7", "7f", "8", "9", "10"),
                     default="all",
                     help="'7': the build, phase 3's CONP sweep (7e's "
                     "reference) and phase 7 only, for a quick check; '7f', "
-                    "'8', '9': the build and that phase only (8 with phase "
-                    "3's CONP sweep, its bitwise reference)")
+                    "'8', '9', '10': the build and that phase only (8 with "
+                    "phase 3's CONP sweep, its bitwise reference)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3422,6 +4170,11 @@ def main(argv=None):
         launches.update(runs)
         rows.extend(g_rows)
         print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+    flame = None
+    if phase in ("all", "10"):
+        f_rows, runs, flame = flame_phase(tms, reps)
+        launches.update(runs)
+        rows.extend(f_rows)
 
     twin_wall = run_twin_jobs()
     print(f"twin reruns: {twin_wall:.1f} s in parallel processes", flush=True)
@@ -3442,6 +4195,7 @@ def main(argv=None):
                       "rescue": rescue, "psr_map": map_summary,
                       "steady_checks": steady, "serving": serving,
                       "solve_batch": batch, "large_mechanism": big,
+                      "flame": flame,
                       "twin_checks": _TWIN_RESULTS, "twin_wall_s": twin_wall,
                       "build_s": build.BUILD_INFO.get("seconds"),
                       "card": smi,

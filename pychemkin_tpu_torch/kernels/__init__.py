@@ -15,7 +15,10 @@
 - :func:`gershgorin_rate` (K8, ``csrc/gershgorin.cu``): the Gershgorin
   bound max_i sum_j |J_ij| of the reactor's closed-form Jacobian at each
   lane's state, [B, N] -> [B] (the scheduler's stiffness proxy and the
-  solve profile's ``stiffness``).
+  solve profile's ``stiffness``);
+- the premixed flame's kernels, in :mod:`.flame`: ``transport_props``
+  (K9), ``flame_residual`` (K10), ``flame_jac`` (K11) and
+  ``block_thomas`` (K12).
 
 K1, K2, K5 and K8 take the reactor's ``problem`` code (:data:`PROBLEMS`):
 "CONP" and "CONP_TGIV" (the lane's constraint value is its pressure),
@@ -103,7 +106,10 @@ LAUNCHES = {n: 0 for n in (
     + [launch_name("psr_solve", fault=fl, xk=x, gm=g) for fl in _TF
        for x in _TF for g in _TF]
     + [launch_name("gershgorin_rate", p, xk=x, prf=pr, gm=g)
-       for p in PROBLEMS for x in _TF for pr in _TF for g in _TF])}
+       for p in PROBLEMS for x in _TF for pr in _TF for g in _TF]
+    + ["transport_props", "block_thomas"]
+    + [launch_name(k, xk=x) for k in ("flame_residual", "flame_jac")
+       for x in _TF])}
 
 #: K6's limit: n = MM + 3 unknowns
 EQ_MAX_N = 12
@@ -797,8 +803,12 @@ def psr_solve(tm, mode, energy, args, y0, ctl, fault=None):
         n_newton_polish=counts["n_polish"], status=status)
 
 
+from .flame import (block_thomas, flame_jac, flame_residual,  # noqa: E402
+                    transport_props)
+
 __all__ = ["LAUNCHES", "PROBLEMS", "Storage", "WORKSPACE_BYTES",
-           "bordered_factor", "bordered_solve", "equil_solve", "extended",
-           "gershgorin_rate", "lane_doubles", "launch_name", "psr_solve",
-           "reset_launches", "rhs", "rhs_jac", "sdirk_round", "smem_limit",
-           "storage"]
+           "block_thomas", "bordered_factor", "bordered_solve", "equil_solve",
+           "extended", "flame_jac", "flame_residual", "gershgorin_rate",
+           "lane_doubles", "launch_name", "psr_solve", "reset_launches", "rhs",
+           "rhs_jac", "sdirk_round", "smem_limit", "storage",
+           "transport_props"]

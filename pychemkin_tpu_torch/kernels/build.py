@@ -31,10 +31,14 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 #: fixed-iteration Newtons whose path on a fragile lane follows the
 #: rounding, so they are compiled without contracting a * b + c into one
 #: fused multiply-add, which rounds once where the reference and the
-#: plain twins round twice
+#: plain twins round twice; the flame's block-Thomas solve (K12) likewise:
+#: its Newton systems reach condition numbers of 1e16-1e20, where two
+#: orders of rounding give directions that differ far beyond 1e-10, and
+#: without contraction it rounds as the reference's per-block LU does
 FILE_FLAGS = {"equilibrium.cu": ["-fmad=false"],
               "psr_solve.cu": ["-fmad=false"],
-              "psr_solve_gm.cu": ["-fmad=false"]}
+              "psr_solve_gm.cu": ["-fmad=false"],
+              "block_thomas.cu": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -135,11 +139,19 @@ def _bind(lib):
     lib.chem_psr_solve.argtypes = [P, P, I, P]
     lib.chem_gershgorin.argtypes = [P, P, P, P, I, I, P, P, P, P]
     lib.chem_smem_optin.argtypes = [I, ctypes.POINTER(I)]
+    lib.chem_transport_props.argtypes = [P, P, P]
+    lib.chem_flame_residual.argtypes = [P, P, P, P]
+    lib.chem_flame_jac.argtypes = [P, P, P, P]
+    lib.chem_block_thomas.argtypes = [P, P, P, P, P, P, I, I, P]
     for fn in (lib.chem_rhs, lib.chem_rhs_jac, lib.chem_bordered_factor,
                lib.chem_bordered_solve, lib.chem_sdirk_round,
                lib.chem_equil_solve, lib.chem_psr_solve,
-               lib.chem_gershgorin, lib.chem_smem_optin):
+               lib.chem_gershgorin, lib.chem_smem_optin,
+               lib.chem_transport_props, lib.chem_flame_residual,
+               lib.chem_flame_jac, lib.chem_block_thomas):
         fn.restype = ctypes.c_int
+    lib.chem_flame_ws_doubles.argtypes = [I, I, I]
+    lib.chem_flame_ws_doubles.restype = ctypes.c_longlong
     lib.chem_lane_doubles.argtypes = [P, I, I]
     lib.chem_psr_lane_doubles.argtypes = [P]
     lib.chem_equil_lane_doubles.argtypes = [P]

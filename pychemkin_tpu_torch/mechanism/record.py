@@ -336,6 +336,15 @@ class TorchMechanism:
             setattr(self, name, F(np.asarray(getattr(rec, name), np.float64)
                                   .reshape(-1, self.plog_L, self.plog_Tm)))
 
+        # transport columns [KK] (ops/transport.py, kernels K9-K11):
+        # geometry code, LJ eps/k (K) and sigma (Angstrom), dipole
+        # (Debye), polarizability (Angstrom^3), Zrot at 298 K
+        self.has_transport = bool(rec.has_transport)
+        if self.has_transport:
+            self.geom = I(rec.geom)
+            for name in ("eps_k", "sigma", "dipole", "polar", "zrot"):
+                setattr(self, name, F(getattr(rec, name)))
+
     def ix(self, name):
         """The int32 index tensor ``name`` as int64, for PyTorch indexing
         (cached)."""
